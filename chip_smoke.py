@@ -5,21 +5,28 @@
 
 Phases (any failure exits non-zero, and the result line is not printed):
   1. card and builds: the card's name and power limit, torch and CUDA
-     versions; build the CUDA kernels (nvcc, registers and spills printed)
-     and the native host core, at the same time;
-  2. the main path at full protocol width: load the mainnet setup on the
-     card (builds the 20 x 4096 fixed-base table), commit to 64 seeded
-     random blobs and prove them, through the public API, with the kernels'
-     launch counts zeroed before each call and read after it;
+     versions; build the CUDA kernels (one nvcc per source; registers and
+     spills printed) and the native host core, all at the same time;
+  2. the main paths at full protocol width, through the public API, with
+     the kernels' launch counts zeroed before each call and read after it:
+     EIP-4844: load the mainnet setup on the card (builds the 20 x 4096
+     fixed-base table), commit to 64 seeded random blobs and prove them;
+     EIP-7594: build the FK20 column points and their c = 8 tables on the
+     card, compute the cells and proofs of 16 seeded blobs in one batch
+     call, then the cells of each blob through compute_cells;
   3. each kernel against its plain PyTorch version, limb for limb, at the
-     main path's shapes (kernel on the card, plain version on a CPU copy
-     for the one-blob shapes, on the card for the 64-blob shapes) and on
-     edge cases (identity operands, P == Q, P == -Q);
-  4. checks of the result: known answers from the setup file's own bytes,
-     a commitment and a proof against the CPU path on a CPU copy of the
-     table, and pairing checks of proofs;
+     main paths' shapes (kernel on the card, plain version on a CPU copy
+     or on the card) and on edge cases (B1, B2: identity operands, P == Q,
+     P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B2 also on
+     the FK20 half convolution's 133,120 lanes;
+  4. checks of the results: known answers from the setup file's own bytes
+     (unit blobs commit to Lagrange points; blobs of x^(64 + k) have known
+     cells and known proofs), a commitment and a proof against the CPU path
+     on a CPU copy of the table, and pairing checks of blob proofs and of
+     cell proofs (the cell's interpolant computed with Python ints);
   5. timings (CUDA events) of each kernel and its plain version, with the
-     least time the card could take.
+     least time the card could take; kernels shorter than their wrapper's
+     host overhead are timed with their launches queued ahead.
 
 The last lines are the card line, a JSON line of kernel numbers, and
 {"ok": true, "device": {...}}.
@@ -34,10 +41,14 @@ import time
 
 SEED = 4844
 N_BLOBS = 64
+N_CELL_BLOBS = 16  # one EIP-7594 batch call: more than a block's 9 blobs (EIP-7691)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 IMAD_PER_CLOCK_PER_SM = 64  # 32-bit integer multiply-add, compute capability 9.0
-MULADDS_PER_FMUL = 12 * (4 * 12 + 1)  # CIOS: 12 rows of 4 twelve-word chains + m
+MULADDS_PER_FMUL = 12 * (4 * 12 + 1)  # Fp CIOS: 12 rows of 4 twelve-word chains + m
+MULADDS_PER_RMUL = 8 * (4 * 8 + 1)  # Fr CIOS: 8 rows of 4 eight-word chains + m
 FMULS = {"seg_scan_phase1": 17, "add_unified": 23}
+FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
+FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
 
 
 class SmokeFailure(Exception):
@@ -67,12 +78,18 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean time of fn on the card over `reps` runs, after one warm run."""
+def cuda_ms(torch, fn, reps: int, queue_ahead: bool = False) -> float:
+    """Mean time of fn on the card over `reps` runs, after one warm run.
+    With `queue_ahead`, the stream first spins for about 5 ms so that the
+    host queues all `reps` launches before the first one starts: a kernel
+    shorter than the wrapper's host overhead (tens of microseconds) is
+    then timed back to back, not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(10_000_000)  # GPU clock cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -82,7 +99,8 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def build_all():
-    """nvcc for the kernels and g++ for the native core, started together."""
+    """nvcc for the kernels (one process per source) and g++ for the
+    native core, started together."""
     from kzg_tpu_torch import kernels, native
 
     results = {}
@@ -134,6 +152,37 @@ def host_eval(blob: bytes, z: int, roots_brp) -> int:
     return total * (pow(z, n, R) - 1) % R * pow(n, R - 2, R) % R
 
 
+def cell_interpolant(values, h: int):
+    """Coefficients of the degree < 64 polynomial through the cell's values.
+    Cell point i is h * w64^brp6(i), so I(x) = sum_m a_m x^m with
+    a_m = h^-m / 64 * sum_t v[brp6(t)] w64^(-t m)."""
+    from kzg_tpu_torch.constants import R_MOD as R, root_of_unity
+    from kzg_tpu_torch.trusted_setup import reverse_bit_order
+
+    n = len(values)
+    natural = reverse_bit_order(list(values))  # value at h * w^t
+    winv = pow(root_of_unity(n.bit_length() - 1), R - 2, R)
+    hinv, ninv = pow(h, R - 2, R), pow(n, R - 2, R)
+    coeffs, hpow = [], 1
+    for m in range(n):
+        wm = pow(winv, m, R)
+        acc, wp = 0, 1
+        for t in range(n):
+            acc += natural[t] * wp
+            wp = wp * wm % R
+        coeffs.append(acc % R * ninv % R * hpow % R)
+        hpow = hpow * hinv % R
+    return coeffs
+
+
+def fft_times_ms(B: int, n: int, products: int, peak_imad: float, value_bytes: int = FR_TENSOR_BYTES) -> tuple:
+    """(operations time, bytes time) in ms of a pass over (16, B, n) Fr
+    values that does `products` Montgomery products, reads every value once
+    and writes it once (`value_bytes` each), and reads the n/2 twiddles once."""
+    nbytes = 2 * B * n * value_bytes + 4 * 8 * (n // 2)
+    return products * MULADDS_PER_RMUL / peak_imad * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -147,8 +196,10 @@ def main() -> int:
     sys.path.insert(0, repo)
     import numpy as np
 
-    from kzg_tpu_torch import api, eip4844, native, trusted_setup
-    from kzg_tpu_torch.ops import cuda_msm, g1, msm
+    from kzg_tpu_torch import api, eip4844, eip7594, native, trusted_setup
+    from kzg_tpu_torch.constants import P_MOD, R_MOD as R
+    from kzg_tpu_torch.ops import cuda_fft, cuda_msm, field as fl, g1, g1fft, launch, msm
+    from kzg_tpu_torch.ops.field import FR
     from kzg_tpu_torch.settings import TorchKZGSettings
 
     t_all = time.perf_counter()
@@ -156,25 +207,29 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    peak_imad = n_sm * IMAD_PER_CLOCK_PER_SM * sm_clock_mhz * 1e6
     log(f"card: {card}; {n_sm} SMs, max SM clock {sm_clock_mhz:.0f} MHz")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     # ---- 1. builds -------------------------------------------------------
     build_all()
 
-    # ---- 2. the main path ------------------------------------------------
+    # ---- 2. the main paths -----------------------------------------------
     setup_path = os.path.join(repo, "tests", "trusted_setup.txt")
     torch.cuda.reset_peak_memory_stats()
     s, t_setup = timed(lambda: api.load_trusted_setup_file(setup_path))
     check(s.device.type == "cuda", "settings not on the card")
     log(f"setup decode: {t_setup:.2f} s")
 
-    def build_table():
-        tab = s.lagrange_table
-        torch.cuda.synchronize()
-        return tab
+    def synced(fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
 
-    table, t_table = timed(build_table)
+        return run
+
+    table, t_table = timed(synced(lambda: s.lagrange_table))
     check(table.c == 13 and tuple(table.x.shape) == (24, 20, 4096), "unexpected table shape")
     log(f"table build (20 x 4096, on the card): {t_table:.2f} s")
 
@@ -186,23 +241,60 @@ def main() -> int:
         return a.tobytes()
 
     blobs = [random_blob() for _ in range(N_BLOBS)]
-    cuda_msm.reset_launches()
-    commits, t_commit = timed(lambda: api.blob_to_kzg_commitment_batch(blobs, s))
-    launches_commit = cuda_msm.launches()
-    cuda_msm.reset_launches()
-    proofs, t_prove = timed(lambda: api.compute_blob_kzg_proof_batch(blobs, commits, s))
-    launches_prove = cuda_msm.launches()
+    main_launches = {}
+
+    def counted_call(label, fn):
+        launch.reset_launches()
+        out, secs = timed(fn)
+        counts = launch.launches()
+        for name, k in counts.items():
+            main_launches[name] = main_launches.get(name, 0) + k
+        log(f"{label}: {secs:.3f} s; launches {counts}")
+        return out, counts, secs
+
+    commits, launches_commit, _ = counted_call(
+        f"commit {N_BLOBS} blobs", lambda: api.blob_to_kzg_commitment_batch(blobs, s)
+    )
+    proofs, launches_prove, _ = counted_call(
+        f"prove {N_BLOBS} blobs", lambda: api.compute_blob_kzg_proof_batch(blobs, commits, s)
+    )
     peak_mem = torch.cuda.max_memory_allocated()
-    log(f"commit {N_BLOBS} blobs: {t_commit:.3f} s; launches {launches_commit}")
-    log(f"prove {N_BLOBS} blobs: {t_prove:.3f} s; launches {launches_prove}")
-    for name in cuda_msm.WRAPPERS:
+    for name in ("seg_scan_phase1", "add_unified"):
         check(launches_commit[name] > 0, f"commit did not launch {name}")
         check(launches_prove[name] > 0, f"prove did not launch {name}")
     check(len(commits) == N_BLOBS and all(len(c) == 48 for c in commits), "bad commitments")
     check(len(proofs) == N_BLOBS and all(len(p) == 48 for p in proofs), "bad proofs")
 
+    # EIP-7594: column tables, then one 16-blob cells-and-proofs call
+    columns, t_columns = timed(synced(lambda: s.x_ext_fft_columns))
+    check(tuple(columns.x.shape) == (24, 128, 64), "unexpected column shape")
+    log(f"FK20 column points (64 G1 FFTs of 128, on the card): {t_columns:.2f} s")
+    col_tables, t_col_tables = timed(synced(lambda: s.column_tables))
+    check(col_tables.c == 8 and tuple(col_tables.x.shape) == (24, 32, 128, 64), "unexpected column table shape")
+    log(f"FK20 column tables (c = 8, 32 x 128 x 64, on the card): {t_col_tables:.2f} s")
+
+    cell_blobs = blobs[:N_CELL_BLOBS]
+    torch.cuda.reset_peak_memory_stats()
+    (cells, cell_proofs), launches_cells, t_cells = counted_call(
+        f"cells and proofs of {N_CELL_BLOBS} blobs",
+        lambda: api.compute_cells_and_kzg_proofs_batch(cell_blobs, s),
+    )
+    peak_mem_cells = torch.cuda.max_memory_allocated()
+    for name in launch.WRAPPERS:
+        check(launches_cells[name] > 0, f"compute_cells_and_kzg_proofs_batch did not launch {name}")
+    check(len(cells) == N_CELL_BLOBS and all(len(c) == 128 and all(len(x) == 2048 for x in c) for c in cells), "bad cells")
+    check(len(cell_proofs) == N_CELL_BLOBS and all(len(p) == 128 for p in cell_proofs), "bad cell proofs")
+    t_compute_cells = 0.0
+    for i, blob in enumerate(cell_blobs):
+        only, counts, secs = counted_call(f"compute_cells blob {i}", lambda: api.compute_cells(blob, s))
+        t_compute_cells += secs
+        for name in ("ntt_tile", "ntt_stage"):
+            check(counts[name] > 0, f"compute_cells did not launch {name}")
+        check(only == cells[i], f"compute_cells differs from the batch call's cells for blob {i}")
+    log(f"compute_cells: {N_CELL_BLOBS} calls in {t_compute_cells:.3f} s, cells equal the batch call's")
+
     # ---- 3. kernels against their plain versions -------------------------
-    max_err = {name: 0 for name in cuda_msm.WRAPPERS}
+    max_err = {name: 0 for name in launch.WRAPPERS}
 
     def compare(name, got, ref):
         """Tolerance: exact. Both sides reduce every limb fully."""
@@ -256,36 +348,95 @@ def main() -> int:
     del ref64
     log(f"B1 {N_BLOBS} blobs: K={K64} m={m64} exact against the plain version on the card")
 
-    # B2: main-path lane count (chunk aggregates of the 64-blob scan), 2048
-    # and a ragged 1000, with identity, P == Q and P == -Q cases
+    # B1 on the FK20 column MSM of the 16 cell blobs (the table's batch
+    # dims: each column its own point set)
+    raw16 = torch.from_numpy(np.frombuffer(b"".join(cell_blobs), np.uint8).reshape(N_CELL_BLOBS, 4096, 32).copy())
+    _, poly16 = eip7594._cells_body(raw16.to(dev))
+    col_scalars = eip7594.column_scalars(poly16, 64)
+    rows_c, idx_c, first_c = msm.phase1_inputs(col_tables, col_scalars)
+    got_c = cuda_msm.seg_scan_phase1_mem(rows_c, idx_c, first_c)
+    compare("seg_scan_phase1", got_c, cuda_msm.seg_scan_phase1_mem_ref(rows_c, idx_c, first_c))
+    log(f"B1 column MSM of {N_CELL_BLOBS} blobs: K={idx_c.shape[0]} m={idx_c.shape[1]} exact against the plain version on the card")
+    del got_c, rows_c, idx_c, first_c
+
+    def edge_cases(p, q):
+        """Copies of p and q with P == Q in lanes 0-49, P == -Q in 50-99,
+        the identity on the right in 100-149 and on the left in 150-199."""
+        p = g1.map_coords(lambda c: c.clone(memory_format=torch.contiguous_format), p)
+        q = g1.map_coords(lambda c: c.clone(memory_format=torch.contiguous_format), q)
+        neg_p = g1.neg(p)
+        for k in range(4):
+            q[k][:, 0:50] = p[k][:, 0:50]
+            q[k][:, 50:100] = neg_p[k][:, 50:100]
+        for pt, lo in ((q, 100), (p, 150)):
+            pt.zz[:, lo : lo + 50] = 0
+            pt.zzz[:, lo : lo + 50] = 0
+        return p, q
+
+    # B2 on the half convolution's lanes: the column sums of the 16 cell
+    # blobs gathered over the circulant's 65 taps, as fk20_half_convolution
+    # gathers them (16 x 128 x 65 = 133,120 lanes), each added to the lane
+    # one tap on; plain version on the card
+    h_ext = msm.msm_fixed(col_tables, col_scalars)  # (24, 16, 128)
+    n_col = h_ext.x.shape[-1]
+    offsets = g1fft._half_conv_taps(n_col)[0]
+    src = torch.from_numpy(((np.arange(n_col)[:, None] - offsets[None, :]) % n_col).reshape(-1)).to(dev)
+    lanes = g1.map_coords(lambda c: c[..., src].reshape(c.shape[0], -1).contiguous(), h_ext)
+    p7, q7 = edge_cases(lanes, g1.map_coords(lambda c: torch.roll(c, 1, dims=-1), lanes))
+    compare("add_unified", cuda_msm.add_points(p7, q7), cuda_msm.add_points_ref(p7, q7))
+    log(f"B2 half-convolution lanes of {N_CELL_BLOBS} blobs ({p7.x.shape[-1]} lanes, with edge cases): "
+        "exact against the plain version on the card")
+    del h_ext, lanes, p7, q7
+
+    # B2: EIP-4844 main-path lane count (chunk aggregates of the 64-blob
+    # scan), 2048 and a ragged 1000 with edge cases; plain version on a CPU copy
     agg = g1.map_coords(lambda c: c[:, K64 - 1, :].contiguous(), got64)
     agg_r = g1.map_coords(lambda c: torch.roll(c, 1, dims=-1).contiguous(), agg)
     b2_cases = [("main", agg_r, agg)]
     for M in (2048, 1000):
-        p = g1.map_coords(lambda c: c[:, :M].contiguous(), agg)
-        q = g1.map_coords(lambda c: c[:, M : 2 * M].contiguous(), agg)
-        q = g1.map_coords(lambda c: c.clone(), q)
-        for k in range(4):
-            q[k][:, 0:50] = p[k][:, 0:50]  # P == Q
-        neg_p = g1.neg(p)
-        for k in range(4):
-            q[k][:, 50:100] = neg_p[k][:, 50:100]  # P == -Q
-        zero = torch.zeros_like(q.zz[:, 100:150])
-        q.zz[:, 100:150] = zero  # identity on the right
-        q.zzz[:, 100:150] = zero
-        p.zz[:, 150:200] = zero  # identity on the left
-        p.zzz[:, 150:200] = zero
-        b2_cases.append((str(M), p, q))
+        b2_cases.append((str(M), *edge_cases(g1.map_coords(lambda c: c[:, :M], agg),
+                                             g1.map_coords(lambda c: c[:, M : 2 * M], agg))))
     for label, p, q in b2_cases:
         got = cuda_msm.add_points(p, q)
         ref = cuda_msm.add_points(g1.map_coords(lambda c: c.cpu(), p), g1.map_coords(lambda c: c.cpu(), q))
         compare("add_unified", got, ref)
         log(f"B2 {label} ({p.x.shape[-1]} lanes): exact")
 
+    # B4 and B5 at the EIP-7594 path's shapes: the inverse 4096 and forward
+    # 8192 of 16 blobs, the 64 x 128 Toeplitz transforms of 16 blobs; an
+    # odd batch; values 0, 1 and r - 1
+    blob_m16 = fl.from_canonical(FR, eip4844._bytes_to_limbs(raw16.to(dev))[0])
+    gen = np.random.default_rng(SEED + 2)
+
+    def random_fr(B, n):
+        vals = [int.from_bytes(gen.bytes(32), "little") % R for _ in range(B * n)]
+        vals[:6] = [0, 1, R - 1, 0, 1, R - 1]
+        return torch.from_numpy(FR.encode_host(vals).reshape(16, B, n)).to(dev)
+
+    fft_cases = [
+        ("ifft 4096 x 16", cuda_fft.bit_reverse(blob_m16).contiguous(), True),
+        ("fft 8192 x 16", torch.cat([poly16, torch.zeros_like(poly16)], dim=-1).contiguous(), False),
+        ("fft 128 x (16, 64)", random_fr(16 * 64, 128), False),
+        ("ifft 8192 x 3 (edge values)", random_fr(3, 8192), True),
+        ("fft 2048 x 5 (edge values)", random_fr(5, 2048), False),
+    ]
+    for label, x, inverse in fft_cases:
+        n = x.shape[-1]
+        log_n = n.bit_length() - 1
+        got = cuda_fft.ntt_tile(x, inverse)
+        ref = cuda_fft.ntt_tile_ref(x, inverse)
+        compare("ntt_tile", [got], [ref])
+        for st in range(cuda_fft.tile_stages(log_n), log_n):
+            got_s = cuda_fft.ntt_stage(ref, st, inverse)
+            ref = cuda_fft.ntt_stage_ref(ref, st, inverse)
+            compare("ntt_stage", [got_s], [ref])
+        log(f"B4/B5 {label}: exact ({log_n - cuda_fft.tile_stages(log_n)} B5 stages)")
+
     # ---- 4. checks of the result -----------------------------------------
     with open(setup_path) as f:
         tokens = f.read().split()
     lagrange_hex = tokens[2 : 2 + 4096]
+    monomial_hex = tokens[2 + 4096 + 65 : 2 + 4096 + 65 + 4096]
     brp = trusted_setup.reverse_bit_order(list(range(4096)))
     known_j = [0, 1, 2, 4095]
     ka_blobs = []
@@ -300,6 +451,36 @@ def main() -> int:
     check(ka[-1] == b"\xc0" + bytes(47), "zero blob does not commit to infinity")
     log(f"known answers: {len(known_j)} unit blobs and the zero blob match the setup file")
 
+    # cells and proofs of blobs holding x^(64 + k) at the bit-reversed
+    # roots: cell value at wire position q is root8192_brp[q]^(64 + k); on
+    # cell j's coset x^64 = c_j = root8192_brp[64 j]^64, so the quotient is
+    # sum_{m <= k / 64} c_j^m x^(k - 64 m), whose commitment is g1_monomial[k]
+    # for k < 64
+    roots = trusted_setup.brp_roots_of_unity()
+    roots_ext = trusted_setup.brp_roots_of_unity(8192)
+    g1m = s.setup.g1_monomial
+    known_k = [0, 1, 4031]
+    ka7_blobs = [b"".join(pow(w, 64 + k, R).to_bytes(32, "big") for w in roots) for k in known_k]
+    ka7_cells, ka7_proofs = api.compute_cells_and_kzg_proofs_batch(ka7_blobs + [bytes(4096 * 32)], s)
+    for k, kc, kp in zip(known_k, ka7_cells, ka7_proofs):
+        want_cells = b"".join(pow(w, 64 + k, R).to_bytes(32, "big") for w in roots_ext)
+        check(b"".join(kc) == want_cells, f"cells of x^(64+{k}) differ from the known answer")
+        if k < 64:
+            want = [bytes.fromhex(monomial_hex[k])] * 128
+        else:
+            want_pts = []
+            for j in range(128):
+                cj = pow(roots_ext[64 * j], 64, R)
+                acc = None
+                for m in range(k // 64 + 1):
+                    acc = native.g1_add(acc, native.g1_mul(g1m[k - 64 * m], pow(cj, m, R)))
+                want_pts.append(acc)
+            want = native.g1_compress_batch(want_pts)
+        check(kp == want, f"proofs of x^(64+{k}) differ from the known answer")
+    check(all(c == bytes(2048) for c in ka7_cells[-1]), "the zero blob's cells are not zero")
+    check(all(p == b"\xc0" + bytes(47) for p in ka7_proofs[-1]), "the zero blob's proofs are not infinity")
+    log(f"known answers: cells and all 128 proofs of x^(64+k), k in {known_k}, and of the zero blob")
+
     cpu_s = TorchKZGSettings(s.setup, torch.device("cpu"))
     cpu_s.lagrange_table = msm.FixedBaseTable(*(t.cpu() for t in table[:3]), table.c)
     (c_cpu, p_cpu), t_cpu = timed(
@@ -312,7 +493,6 @@ def main() -> int:
     check(p_cpu == proofs[0], "proof differs from the CPU path")
     log(f"CPU cross-check of one commitment and one proof: equal ({t_cpu:.1f} s on the host)")
 
-    roots = trusted_setup.brp_roots_of_unity()
     n_pair = 8
     for i in range(n_pair):
         z = eip4844.compute_challenge(blobs[i], commits[i])
@@ -321,41 +501,109 @@ def main() -> int:
         check(eip4844._check_proof_single(s, c_pt, p_pt, z, y), f"proof {i} fails the pairing check")
     log(f"pairing: {n_pair} of {N_BLOBS} proofs verify")
 
+    # cell proofs: e(C - [I_j(s)] + c_j pi_j, G2) == e(pi_j, [s^64]_2)
+    g2_gen = eip4844.G2_GENERATOR
+    pair_cells = [(0, 0), (0, 77), (5, 127), (15, 31)]
+    for b, j in pair_cells:
+        c_pt = native.g1_decompress_batch(commits[b])[0]
+        pi = native.g1_decompress_batch(cell_proofs[b][j])[0]
+        vals = [int.from_bytes(cells[b][j][32 * i : 32 * i + 32], "big") for i in range(64)]
+        coeffs = cell_interpolant(vals, roots_ext[64 * j])
+        i_s = None
+        for m, a in enumerate(coeffs):
+            i_s = native.g1_add(i_s, native.g1_mul(g1m[m], a))
+        neg_i = None if i_s is None else (i_s[0], (P_MOD - i_s[1]) % P_MOD)
+        cj = pow(roots_ext[64 * j], 64, R)
+        lhs = native.g1_add(native.g1_add(c_pt, neg_i), native.g1_mul(pi, cj))
+        check(native.pairings_verify(lhs, g2_gen, pi, s.g2_monomial[64]), f"cell proof ({b}, {j}) fails the pairing check")
+        bad = native.g1_add(lhs, g1m[0])
+        check(not native.pairings_verify(bad, g2_gen, pi, s.g2_monomial[64]), "a wrong cell passes the pairing check")
+    log(f"pairing: {len(pair_cells)} cell proofs verify against their blobs' commitments")
+
     # ---- 5. timings --------------------------------------------------------
     p_main, q_main = agg_r, agg
     t_b1 = cuda_ms(torch, lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64), 20)
-    t_b2 = cuda_ms(torch, lambda: cuda_msm.add_points(p_main, q_main), 50)
+    t_b2 = cuda_ms(torch, lambda: cuda_msm.add_points(p_main, q_main), 50, queue_ahead=True)
     t_b2_plain = cuda_ms(torch, lambda: cuda_msm.add_points_ref(p_main, q_main), 3)
-    peak_imad = n_sm * IMAD_PER_CLOCK_PER_SM * sm_clock_mhz * 1e6
     E64 = N_BLOBS * 20 * 4096  # elements the data needs (the rest is padding)
     b1_ops = E64 * FMULS["seg_scan_phase1"] * MULADDS_PER_FMUL
     b1_bytes = rows64.numel() * 4 + idx64.numel() * 4 + first64.numel() + 4 * 24 * 4 * idx64.numel()
     M2 = p_main.x.shape[-1]
     b2_ops = M2 * FMULS["add_unified"] * MULADDS_PER_FMUL
     b2_bytes = 12 * 24 * 4 * M2
+
+    # B4: the three launches of one 16-blob call; B5: its three stage
+    # launches. Each kernel's bound is the sum of its launches' bounds.
+    # The bound counts the 64 bytes per Fr value that the wrappers' (16,
+    # ...) int32 layout of 16-bit limbs moves; "bytes32" and "bound32" are
+    # the bytes term and the bound at 32 bytes per value, a packed layout.
+    fft_rows = {k: {"ms": 0.0, "plain": 0.0, "bound": 0.0, "ops": 0.0, "bytes": 0.0, "bytes32": 0.0, "bound32": 0.0}
+                for k in ("ntt_tile", "ntt_stage")}
+
+    def fft_timing(name, label, run, run_plain, products, B, n):
+        ms = cuda_ms(torch, run, 20, queue_ahead=True)
+        plain = cuda_ms(torch, run_plain, 3)
+        t_ops, t_bytes = fft_times_ms(B, n, products, peak_imad)
+        t_bytes32 = fft_times_ms(B, n, products, peak_imad, FR_BYTES)[1]
+        row = fft_rows[name]
+        for key, v in (("ms", ms), ("plain", plain), ("bound", max(t_ops, t_bytes)), ("ops", t_ops),
+                       ("bytes", t_bytes), ("bytes32", t_bytes32), ("bound32", max(t_ops, t_bytes32))):
+            row[key] += v
+        log(f"{name} {label}: {ms:.4f} ms (plain {plain:.2f} ms, bound {max(t_ops, t_bytes):.4f} ms, "
+            f"{'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.4f}, bytes {t_bytes:.4f}, "
+            f"bytes at 32 B/value {t_bytes32:.4f} ms) [{card}]")
+
+    for label, x, inverse in fft_cases[:3]:
+        B, n = x.shape[1:]
+        log_n = n.bit_length() - 1
+        S = cuda_fft.tile_stages(log_n)
+        prods = B * ((n // 2) * (S - 1) + (n if inverse else 0))  # stage 0's twiddle is one
+        fft_timing("ntt_tile", label, lambda: cuda_fft.ntt_tile(x, inverse),
+                   lambda: cuda_fft.ntt_tile_ref(x, inverse), prods, B, n)
+        y = cuda_fft.ntt_tile(x, inverse)
+        for st in range(S, log_n):
+            fft_timing("ntt_stage", f"{label} stage {st}", lambda: cuda_fft.ntt_stage(y, st, inverse),
+                       lambda: cuda_fft.ntt_stage_ref(y, st, inverse), B * n // 2, B, n)
+
     rows_out = []
-    for name, ms, plain_ms, ops, nbytes, replaces in (
-        ("seg_scan_phase1", t_b1, t_plain_b1 * 1e3, b1_ops, b1_bytes, "kzg_tpu/ops/pallas_msm.py:94"),
-        ("add_unified", t_b2, t_b2_plain, b2_ops, b2_bytes, "kzg_tpu/ops/pallas_msm.py:209"),
+    for name, ms, plain_ms, bound, by, source, replaces in (
+        ("seg_scan_phase1", t_b1, t_plain_b1 * 1e3, max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3,
+         "operations" if b1_ops / peak_imad >= b1_bytes / HBM_BYTES_PER_S else "bytes",
+         "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:94"),
+        ("add_unified", t_b2, t_b2_plain, max(b2_ops / peak_imad, b2_bytes / HBM_BYTES_PER_S) * 1e3,
+         "operations" if b2_ops / peak_imad >= b2_bytes / HBM_BYTES_PER_S else "bytes",
+         "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:209"),
+    ) + tuple(
+        (name, r["ms"], r["plain"], r["bound"], "operations" if r["ops"] >= r["bytes"] else "bytes",
+         "kzg_tpu_torch/csrc/fft_kernels.cu", replaces)
+        for (name, r), replaces in zip(fft_rows.items(), ("kzg_tpu/ops/pallas_fft.py:179", "kzg_tpu/ops/pallas_fft.py:255"))
     ):
-        t_ops = ops / peak_imad * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         rows_out.append({
             "name": name,
             "route": "cuda",
-            "source": "kzg_tpu_torch/csrc/msm_kernels.cu",
+            "source": source,
             "replaces": replaces,
-            "launches": launches_commit[name] + launches_prove[name],
+            "launches": main_launches[name],
             "max_abs_err": max_err[name],
             "ms": round(ms, 4),
             "plain_ms": round(plain_ms, 4),
-            "bound_ms": round(max(t_ops, t_bytes), 4),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": round(bound, 4),
+            "bound_by": by,
             "library_ms": None,
         })
-        log(f"{name}: {ms:.3f} ms per launch (plain {plain_ms:.1f} ms, bound {max(t_ops, t_bytes):.3f} ms) [{card}]")
-    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {M2} lanes")
-    log(f"peak device memory (main path): {peak_mem / 2**30:.2f} GiB; total {time.perf_counter() - t_all:.0f} s")
+        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound:.4f} ms, {by}) [{card}]")
+    for name, r in fft_rows.items():
+        log(f"{name} bound terms summed over the call's launches: operations {r['ops']:.4f} ms, "
+            f"bytes {r['bytes']:.4f} ms at 64 B/value, {r['bytes32']:.4f} ms at 32 B/value; "
+            f"the kernel at {r['bound'] / r['ms']:.0%} of its bound, "
+            f"{r['bound32'] / r['ms']:.0%} of the bound at 32 B/value [{card}]")
+    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {M2} lanes; "
+        f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches")
+    log(f"main path launches: {main_launches}")
+    log(f"peak device memory: EIP-4844 main path {peak_mem / 2**30:.2f} GiB; "
+        f"EIP-7594 {N_CELL_BLOBS}-blob call {peak_mem_cells / 2**30:.2f} GiB")
+    log(f"EIP-7594 {N_CELL_BLOBS}-blob call {t_cells:.3f} s ({t_cells / N_CELL_BLOBS * 1e3:.1f} ms/blob); "
+        f"total {time.perf_counter() - t_all:.0f} s")
 
     print(card)
     print(json.dumps({"kernels": rows_out}))

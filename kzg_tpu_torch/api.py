@@ -1,5 +1,5 @@
-"""The EIP-4844 commit and prove functions under the names of the JAX
-package's api.py, on a torch device.
+"""The EIP-4844 commit and prove functions and the EIP-7594 cell functions
+under the names of the JAX package's api.py, on a torch device.
 
     from kzg_tpu_torch import api as kzg
     s = kzg.load_trusted_setup_file("trusted_setup.txt")  # on the card
@@ -9,9 +9,10 @@ Entry points run on the card (CUDA) unless `device` names another one;
 with no device given and no card present, loading the setup raises.
 """
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from . import eip4844 as _e4
+from . import eip7594 as _e7
 from .settings import TorchKZGSettings, load_settings, resolve_device
 from .trusted_setup import load_trusted_setup as _load_setup
 
@@ -45,3 +46,18 @@ def compute_blob_kzg_proof_batch(
     blobs: Sequence[bytes], commitments: Sequence[bytes], s: Settings
 ) -> List[bytes]:
     return _e4.compute_blob_kzg_proof_batch(blobs, commitments, s)
+
+
+def compute_cells(blob: bytes, s: Settings) -> List[bytes]:
+    cells, _ = _e7.compute_cells_and_kzg_proofs(blob, s, with_proofs=False)
+    return cells
+
+
+def compute_cells_and_kzg_proofs(blob: bytes, s: Settings) -> Tuple[List[bytes], List[bytes]]:
+    return _e7.compute_cells_and_kzg_proofs(blob, s)
+
+
+def compute_cells_and_kzg_proofs_batch(
+    blobs: Sequence[bytes], s: Settings, with_proofs: bool = True
+) -> Tuple[List[List[bytes]], List[List[bytes]]]:
+    return _e7.compute_cells_and_kzg_proofs_batch(blobs, s, with_proofs)

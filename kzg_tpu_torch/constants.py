@@ -85,6 +85,9 @@ BYTES_PER_FIELD_ELEMENT = 32
 FIELD_ELEMENTS_PER_BLOB = 4096
 BYTES_PER_BLOB = BYTES_PER_FIELD_ELEMENT * FIELD_ELEMENTS_PER_BLOB  # 131072
 FIELD_ELEMENTS_PER_EXT_BLOB = 2 * FIELD_ELEMENTS_PER_BLOB  # 8192
+FIELD_ELEMENTS_PER_CELL = 64
+BYTES_PER_CELL = FIELD_ELEMENTS_PER_CELL * BYTES_PER_FIELD_ELEMENT  # 2048
+CELLS_PER_EXT_BLOB = FIELD_ELEMENTS_PER_EXT_BLOB // FIELD_ELEMENTS_PER_CELL  # 128
 
 BYTES_PER_G1 = 48
 BYTES_PER_G2 = 96

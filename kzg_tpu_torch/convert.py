@@ -18,10 +18,16 @@ def limbs_from_jax(a, device="cpu") -> torch.Tensor:
 
 
 def table_from_jax(x, y, inf, c: int, device="cpu") -> FixedBaseTable:
-    """A JAX FixedBaseTable's (x, y, inf, c) -> this package's table."""
+    """A JAX FixedBaseTable's (x, y, inf, c) -> this package's table: the
+    flat one (24, w, n) of a point set, or one with the table's own batch
+    dims, such as the JAX package's FK20 column tables (24, w, 128, 64)
+    (kzg_tpu/eip7594.py:_column_tables), which keep their layout."""
+    x, y, inf = np.asarray(x), np.asarray(y), np.asarray(inf)
+    if x.ndim < 3 or y.shape != x.shape or inf.shape != x.shape[1:]:
+        raise ValueError(f"table shapes x {x.shape}, y {y.shape}, inf {inf.shape} do not match")
     return FixedBaseTable(
         limbs_from_jax(x, device),
         limbs_from_jax(y, device),
-        torch.from_numpy(np.array(inf, dtype=bool)).to(device),
+        torch.from_numpy(inf.astype(bool)).to(device),
         int(c),
     )

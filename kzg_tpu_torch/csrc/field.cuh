@@ -1,10 +1,11 @@
-// Fp arithmetic for BLS12-381 on twelve 32-bit limbs, for sm_90a.
+// Fp and Fr arithmetic for BLS12-381 on 32-bit limbs (twelve for Fp, eight
+// for Fr), for sm_90a.
 //
 // Shared header of the package's CUDA kernels. Values are little-endian
-// 32-bit limbs in Montgomery form with R = 2^384, the same radix as the
-// package's 16-bit-limb tensors (two 16-bit limbs make one 32-bit limb), so
-// every fully reduced result here equals the plain PyTorch version limb for
-// limb.
+// 32-bit limbs in Montgomery form with R = 2^384 (Fp) and R = 2^256 (Fr),
+// the same radices as the package's 16-bit-limb tensors (two 16-bit limbs
+// make one 32-bit limb), so every fully reduced result here equals the
+// plain PyTorch version limb for limb.
 //
 // The Montgomery product is CIOS: per 32-bit word b_i of one operand,
 // t += a * b_i, then t += m * p with m = t_0 * (-p^-1) mod 2^32, then a
@@ -225,6 +226,178 @@ __device__ __forceinline__ Fp load_limbs16(const int32_t* src, size_t stride) {
 __device__ __forceinline__ void store_limbs16(int32_t* dst, size_t stride, const Fp& a) {
 #pragma unroll
     for (int i = 0; i < NL; i++) {
+        dst[(2 * i) * stride] = (int32_t)(a.v[i] & 0xffffu);
+        dst[(2 * i + 1) * stride] = (int32_t)(a.v[i] >> 16);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Fr: the scalar field, eight 32-bit limbs, R = 2^256. The same CIOS product
+// and carry chains as Fp above, at eight words: with a, b < r < 2^255 every
+// intermediate t stays below 2^289 (10 words) and the result below 2r.
+// ---------------------------------------------------------------------------
+
+constexpr int NLR = 8;
+
+struct Fr {
+    uint32_t v[NLR];
+};
+
+__device__ __constant__ uint32_t R_MOD_W[NLR] = {
+    0x00000001, 0xffffffff, 0xfffe5bfe, 0x53bda402, 0x09a1d805, 0x3339d808, 0x299d7d48, 0x73eda753};
+// -r^-1 mod 2^32
+constexpr uint32_t R_INV = 0xffffffff;
+
+// t[0..7] += lo(a[j] * b); the carry runs on into t[8], t[9]
+__device__ __forceinline__ void mac_lo_r(uint32_t t[10], const uint32_t a[NLR], uint32_t b) {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+        "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+        "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+        "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+        "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+        "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+        "addc.cc.u32 %8, %8, 0;\n\t"
+        "addc.u32 %9, %9, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(b));
+}
+
+// t[1..8] += hi(a[j] * b); the carry runs on into t[9]
+__device__ __forceinline__ void mac_hi_r(uint32_t t[10], const uint32_t a[NLR], uint32_t b) {
+    asm("{\n\t"
+        "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+        "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+        "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+        "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+        "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+        "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+        "addc.u32 %9, %9, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(b));
+}
+
+// r = a + b over 8 words; returns the carry out (0 or 1)
+__device__ __forceinline__ uint32_t add_words_r(uint32_t r[NLR], const uint32_t a[NLR], const uint32_t b[NLR]) {
+    uint32_t carry;
+    asm("{\n\t"
+        "add.cc.u32 %0, %9, %17;\n\t"
+        "addc.cc.u32 %1, %10, %18;\n\t"
+        "addc.cc.u32 %2, %11, %19;\n\t"
+        "addc.cc.u32 %3, %12, %20;\n\t"
+        "addc.cc.u32 %4, %13, %21;\n\t"
+        "addc.cc.u32 %5, %14, %22;\n\t"
+        "addc.cc.u32 %6, %15, %23;\n\t"
+        "addc.cc.u32 %7, %16, %24;\n\t"
+        "addc.u32 %8, 0, 0;"
+        "\n\t}"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(carry)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+          "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+    return carry;
+}
+
+// r = a - b over 8 words; returns 0xffffffff on a borrow out, else 0
+__device__ __forceinline__ uint32_t sub_words_r(uint32_t r[NLR], const uint32_t a[NLR], const uint32_t b[NLR]) {
+    uint32_t borrow;
+    asm("{\n\t"
+        "sub.cc.u32 %0, %9, %17;\n\t"
+        "subc.cc.u32 %1, %10, %18;\n\t"
+        "subc.cc.u32 %2, %11, %19;\n\t"
+        "subc.cc.u32 %3, %12, %20;\n\t"
+        "subc.cc.u32 %4, %13, %21;\n\t"
+        "subc.cc.u32 %5, %14, %22;\n\t"
+        "subc.cc.u32 %6, %15, %23;\n\t"
+        "subc.cc.u32 %7, %16, %24;\n\t"
+        "subc.u32 %8, 0, 0;"
+        "\n\t}"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(borrow)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+          "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+    return borrow;
+}
+
+__device__ __forceinline__ void load_r(uint32_t r[NLR]) {
+#pragma unroll
+    for (int i = 0; i < NLR; i++) r[i] = R_MOD_W[i];
+}
+
+// mask ? a : b, limb by limb (mask is 0 or 0xffffffff)
+__device__ __forceinline__ Fr rsel_mask(uint32_t mask, const Fr& a, const Fr& b) {
+    Fr r;
+#pragma unroll
+    for (int i = 0; i < NLR; i++) r.v[i] = (a.v[i] & mask) | (b.v[i] & ~mask);
+    return r;
+}
+
+// (a + b) mod r for a, b < r
+__device__ __forceinline__ Fr radd(const Fr& a, const Fr& b) {
+    uint32_t m[NLR];
+    load_r(m);
+    Fr s, d;
+    uint32_t carry = add_words_r(s.v, a.v, b.v);
+    uint32_t borrow = sub_words_r(d.v, s.v, m);
+    return rsel_mask((0u - carry) | ~borrow, d, s);
+}
+
+// (a - b) mod r for a, b < r
+__device__ __forceinline__ Fr rsub(const Fr& a, const Fr& b) {
+    uint32_t m[NLR];
+    load_r(m);
+    Fr d, s;
+    uint32_t borrow = sub_words_r(d.v, a.v, b.v);
+    add_words_r(s.v, d.v, m);  // the carry out cancels the borrow
+    return rsel_mask(borrow, s, d);
+}
+
+// a * b * 2^-256 mod r, fully reduced, for a, b < r (CIOS)
+__device__ __forceinline__ Fr rmul(const Fr& a, const Fr& b) {
+    uint32_t m[NLR];
+    load_r(m);
+    uint32_t t[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < NLR; i++) {
+        mac_lo_r(t, a.v, b.v[i]);
+        mac_hi_r(t, a.v, b.v[i]);
+        uint32_t q = t[0] * R_INV;
+        mac_lo_r(t, m, q);
+        mac_hi_r(t, m, q);
+        // t[0] is now 0: shift down one word
+#pragma unroll
+        for (int j = 0; j < 9; j++) t[j] = t[j + 1];
+        t[9] = 0;
+    }
+    // t < 2r < 2^256: t[8] == 0
+    Fr r, d;
+#pragma unroll
+    for (int i = 0; i < NLR; i++) r.v[i] = t[i];
+    uint32_t borrow = sub_words_r(d.v, r.v, m);
+    return rsel_mask(borrow, r, d);
+}
+
+// 16 16-bit limbs (strided int32 loads) <-> eight 32-bit words
+__device__ __forceinline__ Fr load_fr16(const int32_t* src, size_t stride) {
+    Fr r;
+#pragma unroll
+    for (int i = 0; i < NLR; i++) {
+        uint32_t lo = (uint32_t)src[(2 * i) * stride];
+        uint32_t hi = (uint32_t)src[(2 * i + 1) * stride];
+        r.v[i] = lo | (hi << 16);
+    }
+    return r;
+}
+
+__device__ __forceinline__ void store_fr16(int32_t* dst, size_t stride, const Fr& a) {
+#pragma unroll
+    for (int i = 0; i < NLR; i++) {
         dst[(2 * i) * stride] = (int32_t)(a.v[i] & 0xffffu);
         dst[(2 * i + 1) * stride] = (int32_t)(a.v[i] >> 16);
     }

@@ -9,9 +9,7 @@ version. The counterpart of the JAX package's ops/pallas_msm.py.
 A wrapper runs its plain version (`*_ref`) for tensors on the CPU. For a
 CUDA tensor it launches the kernel, or raises: nothing falls back. Each
 wrapper checks device, dtype, shape and contiguity, and raises on anything
-else. Each counts its launches in a plain integer attribute (`.launches`)
-that it increments where it launches, so a run can show which kernels it
-went through (`reset_launches`, `launches`).
+else. Each counts its launches in the registry of ops/launch.py.
 """
 
 from __future__ import annotations
@@ -20,35 +18,11 @@ import torch
 
 from . import field as fl
 from . import g1
+from . import launch
 from .field import FP
 
 L = FP.n_limbs
 ROW_WORDS = L + 1  # [12 packed x words | 12 packed y words | inf]
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check_launch(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _require_cuda(device: torch.device) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}: the kernels run on CUDA, the plain versions on the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +58,7 @@ def seg_scan_phase1_mem_ref(rows: torch.Tensor, idx: torch.Tensor, first: torch.
     return g1.G1XYZZ(*(torch.stack([s[k] for s in steps], dim=1) for k in range(4)))
 
 
+@launch.counted("seg_scan_phase1")
 def seg_scan_phase1_mem(rows: torch.Tensor, idx: torch.Tensor, first: torch.Tensor) -> g1.G1XYZZ:
     """Within-chunk inclusive segmented scan. Lane j of the m chunk lanes
     scans the sorted elements j*K .. j*K + K - 1; element (t, j) sits at
@@ -94,26 +69,22 @@ def seg_scan_phase1_mem(rows: torch.Tensor, idx: torch.Tensor, first: torch.Tens
     segment starts. Returns XYZZ coordinates, each (24, K, m) int32."""
     dev = rows.device
     K, m = idx.shape
-    _check(rows, "rows", torch.int32, (rows.shape[0], ROW_WORDS), dev)
-    _check(idx, "idx", torch.int32, (K, m), dev)
-    _check(first, "first", torch.bool, (K, m), dev)
+    launch.check(rows, "rows", torch.int32, (rows.shape[0], ROW_WORDS), dev)
+    launch.check(idx, "idx", torch.int32, (K, m), dev)
+    launch.check(first, "first", torch.bool, (K, m), dev)
     if dev.type == "cpu":
         return seg_scan_phase1_mem_ref(rows, idx, first)
-    _require_cuda(dev)
+    launch.require_cuda(dev)
     out = [torch.empty((L, K, m), dtype=fl.LIMB_DTYPE, device=dev) for _ in range(4)]
     if K * m == 0:
         return g1.G1XYZZ(*out)
-    lib = _kernels()
-    rc = lib.kzg_seg_scan_phase1(
+    rc = launch.kernels().kzg_seg_scan_phase1(
         rows.data_ptr(), idx.data_ptr(), first.data_ptr(), *(o.data_ptr() for o in out),
-        K, m, _stream(),
+        K, m, launch.stream(),
     )
     seg_scan_phase1_mem.launches += 1
-    _check_launch(rc, "seg_scan_phase1")
+    launch.check_launch(rc, "seg_scan_phase1")
     return g1.G1XYZZ(*out)
-
-
-seg_scan_phase1_mem.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -126,43 +97,23 @@ def add_points_ref(p: g1.G1XYZZ, q: g1.G1XYZZ) -> g1.G1XYZZ:
     return g1.add_unified_plain(p, q)
 
 
+@launch.counted("add_unified")
 def add_points(p: g1.G1XYZZ, q: g1.G1XYZZ) -> g1.G1XYZZ:
     """Complete XYZZ addition of two flat batches, each coordinate a
     contiguous (24, M) int32 tensor."""
     dev = p.x.device
     M = p.x.shape[-1]
     for name, c in zip(("px", "py", "pzz", "pzzz", "qx", "qy", "qzz", "qzzz"), (*p, *q)):
-        _check(c, name, torch.int32, (L, M), dev)
+        launch.check(c, name, torch.int32, (L, M), dev)
     if dev.type == "cpu":
         return add_points_ref(p, q)
-    _require_cuda(dev)
+    launch.require_cuda(dev)
     out = [torch.empty((L, M), dtype=fl.LIMB_DTYPE, device=dev) for _ in range(4)]
     if M == 0:
         return g1.G1XYZZ(*out)
-    lib = _kernels()
-    rc = lib.kzg_add_unified(
-        *(c.data_ptr() for c in (*p, *q)), *(o.data_ptr() for o in out), M, _stream()
+    rc = launch.kernels().kzg_add_unified(
+        *(c.data_ptr() for c in (*p, *q)), *(o.data_ptr() for o in out), M, launch.stream()
     )
     add_points.launches += 1
-    _check_launch(rc, "add_unified")
+    launch.check_launch(rc, "add_unified")
     return g1.G1XYZZ(*out)
-
-
-add_points.launches = 0
-
-WRAPPERS = {"seg_scan_phase1": seg_scan_phase1_mem, "add_unified": add_points}
-
-
-def reset_launches() -> None:
-    for w in WRAPPERS.values():
-        w.launches = 0
-
-
-def launches() -> dict:
-    return {name: w.launches for name, w in WRAPPERS.items()}
-
-
-def _kernels():
-    from .. import kernels
-
-    return kernels.load()

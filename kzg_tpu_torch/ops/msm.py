@@ -250,7 +250,9 @@ def integrate_buckets(buckets: G1XYZZ) -> G1XYZZ:
 
 
 class FixedBaseTable(NamedTuple):
-    """Window multiples 2^(c j) P_i. x/y: (24, w, n) int32; inf: (w, n)."""
+    """Window multiples 2^(c j) P_i. x/y: (24, w, *tb, n) int32; inf:
+    (w, *tb, n). The table's own batch dims tb (none for one point set)
+    hold distinct point sets, such as the 128 FK20 columns."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -264,7 +266,8 @@ class FixedBaseTable(NamedTuple):
 
 def build_fixed_base_table(points: G1Aff, c: Optional[int] = None) -> FixedBaseTable:
     """Once per setup: w doubling chains over the batch, then one batch
-    affine conversion. Runs on the points' device."""
+    affine conversion. Runs on the points' device. Points (24, *tb, n)
+    give a table with batch dims tb."""
     n = points.x.shape[-1]
     if c is None:
         c = default_window(n, fixed_base=True)
@@ -291,6 +294,10 @@ def _fixed_inputs(table: FixedBaseTable, scalars: torch.Tensor):
     dev = table.x.device
     batch = tuple(scalars.shape[1:-1])
     nb = int(np.prod(batch)) if batch else 1
+    tb = tuple(table.x.shape[2:-1])  # the table's own batch dims
+    if len(tb) > len(batch) or batch[len(batch) - len(tb):] != tb:
+        raise ValueError(f"scalars' batch {batch} does not end in the table's batch dims {tb}")
+    Tb = int(np.prod(tb)) if tb else 1
 
     digits = signed_digits(scalars, c).reshape(w, nb, n)
     sign = digits < 0
@@ -298,11 +305,13 @@ def _fixed_inputs(table: FixedBaseTable, scalars: torch.Tensor):
     keys = bidx * (half + 1) + digits.abs()  # windows share the bucket space
     E = nb * w * n
 
+    # source row of element (j, b, i): batch b uses the table's point set
+    # b mod Tb (its batch dims broadcast over the table's from the right)
     rows_packed, R0 = _pack_point_rows(table.x, table.y, table.inf)
     src_nat = (
-        torch.arange(w, device=dev).reshape(w, 1, 1) * n
-        + torch.arange(n, device=dev).reshape(1, 1, n)
-    ).expand(w, nb, n)
+        torch.arange(w, device=dev).reshape(w, 1, 1) * Tb
+        + (torch.arange(nb, device=dev) % Tb).reshape(1, nb, 1)
+    ) * n + torch.arange(n, device=dev).reshape(1, 1, n)
     aug = torch.where(sign, src_nat + R0, src_nat).reshape(E)
     return rows_packed, _scan_layout(keys.reshape(E), aug), nb * (half + 1), nb, batch
 
@@ -315,8 +324,10 @@ def phase1_inputs(table: FixedBaseTable, scalars: torch.Tensor):
 
 def msm_fixed(table: FixedBaseTable, scalars: torch.Tensor) -> G1XYZZ:
     """Fixed-base MSM: scalars are canonical Fr limbs (16, *batch, n) with
-    n == table.n, on the table's device; leading batch dims are independent
-    MSMs over the same points. Returns XYZZ sums of batch shape (*batch,)."""
+    n == table.n, on the table's device; batch dims are independent MSMs,
+    over the same points, or, where the table has batch dims tb (the
+    trailing batch dims must equal them), over the point set of their
+    index in tb. Returns XYZZ sums of batch shape (*batch,)."""
     rows_packed, lay, n_keys, nb, batch = _fixed_inputs(table, scalars)
     sums = _bucket_sums_mem(rows_packed, lay, n_keys)
     buckets = map_coords(lambda cc: cc.reshape(FP.n_limbs, nb, -1), sums)

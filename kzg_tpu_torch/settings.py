@@ -1,7 +1,8 @@
 """KZG settings on a torch device: the fixed-base MSM table of the
-bit-reversed Lagrange setup (built on the device, cached on disk) and the
-bit-reversed roots of unity in Montgomery form, beside the host-side setup
-points (G2 points for the pairing check).
+bit-reversed Lagrange setup and the FK20 column points and tables (each
+built on the device, cached on disk) and the bit-reversed roots of unity in
+Montgomery form, beside the host-side setup points (G2 points for the
+pairing check).
 
 Entry points run on the card unless the caller names another device: with
 no device given and no card present, `resolve_device` raises.
@@ -16,13 +17,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .constants import FIELD_ELEMENTS_PER_BLOB
+from .constants import CELLS_PER_EXT_BLOB, FIELD_ELEMENTS_PER_BLOB
 from .ops import g1 as dg1
+from .ops import g1fft
 from .ops import msm as dmsm
 from .ops.field import FR
 from .trusted_setup import TrustedSetup, brp_roots_of_unity, load_trusted_setup_file
 
 _TABLE_FORMAT_VERSION = 1
+COLUMN_WINDOW = 8  # the FK20 column tables' window, as the JAX package's
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,47 +60,107 @@ def _points_hash(points) -> str:
 
 
 def table_cache_path(points, tag: str, c: int) -> str:
+    """Cache file of a table (or other arrays) built from `points`, named
+    by `tag` and the window c (0 where there is none)."""
     return os.path.join(
         cache_dir(),
         f"kzg-tpu-torch.table.v{_TABLE_FORMAT_VERSION}.{tag}.{c}.{_points_hash(points)}.npz",
     )
 
 
-def build_table_cached(points, tag: str, device: torch.device, c: Optional[int] = None):
-    """Fixed-base table for a list of affine points, built on `device`, or
-    loaded from the disk cache. The file is written whole (temporary name,
-    then rename), so concurrent processes never read a partial one."""
-    if c is None:
-        c = dmsm.default_window(len(points), fixed_base=True)
-    path = table_cache_path(points, tag, c)
+def _xyinf_cached(path: str, build, device: torch.device):
+    """(x, y, inf) tensors from the disk cache file `path`, or from
+    build() (on `device`), then written there. The file is written whole
+    (temporary name, then rename), so concurrent processes never read a
+    partial one."""
     if os.path.exists(path):
         with np.load(path) as data:
-            return dmsm.FixedBaseTable(
-                *(torch.from_numpy(data[k]).to(device) for k in ("x", "y", "inf")), c
-            )
-    table = dmsm.build_fixed_base_table(dg1.affine_from_ints(points, device), c=c)
+            return tuple(torch.from_numpy(data[k]).to(device) for k in ("x", "y", "inf"))
+    x, y, inf = build()
     try:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp.npz"
-        np.savez(tmp, x=table.x.cpu().numpy(), y=table.y.cpu().numpy(), inf=table.inf.cpu().numpy())
+        np.savez(tmp, x=x.cpu().numpy(), y=y.cpu().numpy(), inf=inf.cpu().numpy())
         os.replace(tmp, path)
     except OSError:
         pass  # a cache that cannot be written only costs the next process a rebuild
-    return table
+    return x, y, inf
+
+
+def build_table_cached(points, tag: str, device: torch.device, c: Optional[int] = None):
+    """Fixed-base table for a list of affine points, built on `device`, or
+    loaded from the disk cache."""
+    if c is None:
+        c = dmsm.default_window(len(points), fixed_base=True)
+
+    def build():
+        return dmsm.build_fixed_base_table(dg1.affine_from_ints(points, device), c=c)[:3]
+
+    return dmsm.FixedBaseTable(*_xyinf_cached(table_cache_path(points, tag, c), build, device), c)
+
+
+def build_x_ext_fft_columns(g1_monomial, cell: int, device: torch.device) -> dg1.G1Aff:
+    """The FK20 column points over the monomial setup (n points): for each
+    of the `cell` offsets, the G1 FFT of length 2k (k = n / cell) of
+    [g1[n - cell - 1 - offset - i cell] for i < k - 1] followed by k + 1
+    infinities; column i holds entry i of every offset's FFT. All offsets
+    go through one batched fft_g1 on `device`. Returns affine points
+    (24, 2k, cell)."""
+    n = len(g1_monomial)
+    k = n // cell
+    pts = []
+    for offset in range(cell):
+        start = n - cell - 1 - offset
+        pts += [g1_monomial[start - i * cell] for i in range(k - 1)] + [None] * (k + 1)
+    aff = dg1.affine_from_ints(pts, device)
+    rows = dg1.from_affine(dg1.G1Aff(*(t.reshape(t.shape[:-1] + (cell, 2 * k)) for t in aff)))
+    ext = g1fft.fft_g1(rows)  # (24, cell, 2k)
+    return dg1.to_affine(dg1.map_coords(lambda t: t.transpose(-1, -2).contiguous(), ext))
 
 
 @dataclass
 class TorchKZGSettings:
-    """Trusted setup for the EIP-4844 path on one torch device."""
+    """Trusted setup on one torch device: the EIP-4844 tables and the
+    EIP-7594 (FK20) column tables, each built on first use."""
 
     setup: TrustedSetup
     device: torch.device
+
+    @property
+    def cell_size(self) -> int:
+        """Field elements per cell: 64 on the mainnet setup, and n / 64 on
+        any n-point setup (as the JAX package's test setups), so that an
+        extended blob always has 128 cells."""
+        return max(1, len(self.setup.g1_monomial) // (CELLS_PER_EXT_BLOB // 2))
 
     @cached_property
     def lagrange_table(self) -> dmsm.FixedBaseTable:
         """Fixed-base table over the bit-reversed Lagrange setup: the base
         of every blob commitment and proof MSM (c = 13, 20 windows)."""
         return build_table_cached(self.setup.g1_lagrange_brp, "lagrange_brp", self.device)
+
+    @cached_property
+    def x_ext_fft_columns(self) -> dg1.G1Aff:
+        """The FK20 column points, affine (24, 2n / cell, cell): (24, 128,
+        64) on the mainnet setup. Built on the device, cached on disk."""
+        g1m = self.setup.g1_monomial
+
+        def build():
+            return build_x_ext_fft_columns(g1m, self.cell_size, self.device)
+
+        path = table_cache_path(g1m, "x_ext_fft_columns", 0)
+        return dg1.G1Aff(*_xyinf_cached(path, build, self.device))
+
+    @cached_property
+    def column_tables(self) -> dmsm.FixedBaseTable:
+        """Fixed-base tables over the FK20 columns, c = 8 (32 windows), with
+        the columns as the table's batch dim: (24, 32, 128, 64) on the
+        mainnet setup. Built on the device, cached on disk."""
+        def build():
+            return dmsm.build_fixed_base_table(self.x_ext_fft_columns, c=COLUMN_WINDOW)[:3]
+
+        path = table_cache_path(self.setup.g1_monomial, "x_ext_columns", COLUMN_WINDOW)
+        return dmsm.FixedBaseTable(*_xyinf_cached(path, build, self.device), COLUMN_WINDOW)
 
     @cached_property
     def roots_brp_mont(self) -> torch.Tensor:

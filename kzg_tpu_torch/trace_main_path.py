@@ -1,13 +1,15 @@
-"""Where the time of the EIP-4844 main path goes, on one card.
+"""Where the time of the main paths goes, on one card.
 
     python -m kzg_tpu_torch.trace_main_path
 
-Loads the mainnet setup on the card, runs one warm commit and prove of 64
-seeded random blobs (as chip_smoke.py), then traces one more of each with torch.profiler
-(CPU and CUDA activities) and prints, per call: the wall time, the summed
-time of device kernels and its share of the wall time (the rest is the
-device idle), the two hand-written kernels' share, and the device kernels
-that take the most time. Exits non-zero without a card.
+Loads the mainnet setup on the card and its tables, runs one warm commit
+and prove of 64 seeded random blobs and one warm EIP-7594 cells-and-proofs
+call of 16 of them (as chip_smoke.py), then traces one more of each with
+torch.profiler (CPU and CUDA activities) and prints, per call: the wall
+time, the summed time of device kernels and its share of the wall time
+(the rest is the device idle), each hand-written kernel's time and
+launches, and the device kernels that take the most time. Exits non-zero
+without a card.
 """
 
 import os
@@ -18,11 +20,12 @@ import numpy as np
 import torch
 
 from . import api
-from .ops import cuda_msm
+from .ops import launch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_OURS = ("seg_scan_phase1_kernel", "add_unified_kernel")
+_OURS = ("seg_scan_phase1_kernel", "add_unified_kernel", "ntt_tile_kernel", "ntt_stage_kernel")
 N_BLOBS = 64
+N_CELL_BLOBS = 16
 SEED = 4844
 
 
@@ -51,10 +54,19 @@ def _trace(label: str, fn) -> None:
     for e in events:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    ours_us = sum(t for name, (_, t) in by_name.items() if any(k in name for k in _OURS))
+    ours = {k: [0, 0.0] for k in _OURS}
+    for name, (n, t) in by_name.items():
+        for k in _OURS:
+            if k in name:
+                ours[k][0] += n
+                ours[k][1] += t
+    ours_us = sum(t for _, t in ours.values())
     print(f"{label}: wall {wall * 1e3:.1f} ms; device kernels {len(events)} launches, "
           f"{busy_us / 1e3:.1f} ms busy ({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall, "
           f"idle {100 - 100 * busy_us / 1e3 / (wall * 1e3):.1f}%); hand-written kernels {ours_us / 1e3:.2f} ms")
+    for k, (n, t) in ours.items():
+        if n:
+            print(f"  hand-written {k}: {n} launches, {t / 1e3:.3f} ms")
     if not events:
         print(f"{label}: the profiler recorded no device time (not measured)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
@@ -73,14 +85,20 @@ def main() -> int:
     ).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     s = api.load_trusted_setup_file(os.path.join(_REPO, "tests", "trusted_setup.txt"))
-    s.lagrange_table  # built on the card, outside the traced calls
+    s.lagrange_table  # built on the card (or read from the disk cache), outside the traced calls
+    s.column_tables
     blobs = _blobs(N_BLOBS, SEED)
     commits = api.blob_to_kzg_commitment_batch(blobs, s)  # warm
     api.compute_blob_kzg_proof_batch(blobs, commits, s)
-    cuda_msm.reset_launches()
+    api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s)
+    launch.reset_launches()
     _trace(f"commit {N_BLOBS} blobs", lambda: api.blob_to_kzg_commitment_batch(blobs, s))
     _trace(f"prove {N_BLOBS} blobs", lambda: api.compute_blob_kzg_proof_batch(blobs, commits, s))
-    print(f"wrapper launches in the traced calls: {cuda_msm.launches()}")
+    _trace(
+        f"cells and proofs of {N_CELL_BLOBS} blobs",
+        lambda: api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s),
+    )
+    print(f"wrapper launches in the traced calls: {launch.launches()}")
     return 0
 
 

@@ -75,6 +75,28 @@ def test_msm_fixed_matches_oracle(points, tables, n, c, nb):
     assert got == [oracle_msm(points[:n], s) for s in rows]
 
 
+
+def test_msm_with_table_batch_dims(points, tables):
+    """A table with its own batch dims (24, w, 4, 8), c = 8: four point sets
+    of 8 (the FK20 column tables' layout), scalars (16, 2, 4, 8). Each
+    (batch, set) sum equals the oracle MSM over that set's points and the
+    flat path over that set's own table."""
+    sets, n = 4, 8
+    aff = tg.affine_from_ints(points[: sets * n], "cpu")
+    table = tm.build_fixed_base_table(tg.G1Aff(*(t.reshape(t.shape[:-1] + (sets, n)) for t in aff)), c=8)
+    assert table.x.shape == (24, 32, sets, n) and table.inf.shape == (32, sets, n)
+    rows, limbs = _scalars(77, sets * n, 2)
+    sc = torch.from_numpy(limbs.reshape(16, 2, sets, n))
+    got = tg.xyzz_to_ints(tm.msm_fixed(table, sc))  # (2, sets) flattened
+    for j in range(sets):
+        flat = tm.FixedBaseTable(table.x[:, :, j], table.y[:, :, j], table.inf[:, j], table.c)
+        per_set = tg.xyzz_to_ints(tm.msm_fixed(flat, sc[:, :, j].contiguous()))
+        for b in range(2):
+            want = oracle_msm(points[j * n : (j + 1) * n], rows[b][j * n : (j + 1) * n])
+            assert got[b * sets + j] == per_set[b] == want
+    with pytest.raises(ValueError, match="table's batch dims"):
+        tm.msm_fixed(table, sc[:, :, :2].contiguous())
+
 @pytest.mark.parametrize("lanes", [2048, 32768])
 def test_chunk_lane_count_does_not_change_the_sum(points, tables, monkeypatch, lanes):
     """The JAX package's 2048 chunk lanes and the count chosen for the card

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from kzg_tpu_torch import api, convert, kernels, settings
-from kzg_tpu_torch.ops import cuda_msm, g1, msm
+from kzg_tpu_torch.ops import cuda_fft, cuda_msm, g1, launch, msm
+from kzg_tpu_torch.ops.field import FR
 from kzg_tpu_torch.ops.field import ints_to_limbs
 
 torch.set_num_threads(1)  # one core per test worker: the suite runs several at once
@@ -76,7 +77,47 @@ def test_add_points_checks_inputs_and_has_no_fallback():
     meta = g1.map_coords(lambda c: c.to("meta"), p)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_msm.add_points(meta, meta)
-    assert cuda_msm.launches() == {"seg_scan_phase1": 0, "add_unified": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "ntt_tile": 0, "ntt_stage": 0}
+
+
+def _fr_values(B, n, seed=1):
+    rng = np.random.default_rng(seed)
+    vals = [0, 1, FR.modulus - 1] + [int.from_bytes(rng.bytes(32), "little") % FR.modulus for _ in range(B * n - 3)]
+    return torch.from_numpy(FR.encode_host(vals).reshape(16, B, n))
+
+
+def test_ntt_wrappers_check_inputs_and_have_no_fallback():
+    x = _fr_values(2, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_fft.ntt_tile(x.long())
+    with pytest.raises(ValueError, match="shape"):
+        cuda_fft.ntt_tile(x[:8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_fft.ntt_tile(x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_fft.ntt_stage(x[..., :12].contiguous(), 2)
+    with pytest.raises(ValueError, match="stage 4"):
+        cuda_fft.ntt_stage(x, 4)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cuda_fft.ntt_tile(x.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cuda_fft.ntt_stage(x.to("meta"), 1)
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "ntt_tile": 0, "ntt_stage": 0}
+
+
+def test_every_launcher_has_a_signature():
+    """Each extern "C" launcher in csrc/ is bound, from the source that
+    defines it, and every source is built."""
+    import re
+
+    found = {}
+    for src in os.listdir(os.path.join(REPO, "kzg_tpu_torch", "csrc")):
+        if src.endswith(".cu"):
+            with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", src)) as f:
+                for name in re.findall(r'extern "C" int (\w+)\(', f.read()):
+                    found[name] = src
+    assert found == {name: src for name, (_, src) in kernels.SIGNATURES.items()}
+    assert set(found.values()) == set(kernels.SOURCES)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
@@ -188,6 +229,18 @@ def test_seg_scan_kernel_matches_plain(cuda_device):
     ref = cuda_msm.seg_scan_phase1_mem(rows.cpu(), idx_t, first_t)
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, n, inverse", [(5, 128, False), (3, 4096, True), (2, 8192, False)])
+def test_ntt_kernels_match_plain(cuda_device, B, n, inverse):
+    x = _fr_values(B, n, seed=n)
+    got = cuda_fft.ntt_tile(x.to(cuda_device), inverse)
+    ref = cuda_fft.ntt_tile_ref(x, inverse)
+    assert torch.equal(got.cpu(), ref)
+    for s in range(cuda_fft.tile_stages(n.bit_length() - 1), n.bit_length() - 1):
+        got, ref = cuda_fft.ntt_stage(ref.to(cuda_device), s, inverse), cuda_fft.ntt_stage_ref(ref, s, inverse)
+        assert torch.equal(got.cpu(), ref)
 
 
 @pytest.mark.gpu
