@@ -14,16 +14,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
      EIP-7594: build the FK20 column points and their c = 8 tables on the
      card, compute the cells and proofs of 16 seeded blobs in one batch
      call, then the cells of each blob through compute_cells;
+     verification: all 2048 cells and proofs of those 16 blobs in one
+     verify_cell_kzg_proof_batch call (a supernode's or a builder's check
+     of a block), then a sampling node's 8 columns of them (128 cells),
+     and verify_blob_kzg_proof_batch on the 64 blobs: True; False with a
+     cell changed, two proofs swapped, a proof of another blob; a
+     non-canonical blob raises;
   3. each kernel against its plain PyTorch version, limb for limb, at the
      main paths' shapes (kernel on the card, plain version on a CPU copy
-     or on the card) and on edge cases (B1, B2: identity operands, P == Q,
-     P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B2 also on
-     the FK20 half convolution's 133,120 lanes;
+     or on the card) and on edge cases (B1, B2, B3: identity operands,
+     P == Q, P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B2
+     also on the FK20 half convolution's 133,120 lanes; B3 at the verify
+     paths' shapes (1 and 2 MSMs, c = 13, 20 windows) and at 1024 lanes;
   4. checks of the results: known answers from the setup file's own bytes
      (unit blobs commit to Lagrange points; blobs of x^(64 + k) have known
      cells and known proofs), a commitment and a proof against the CPU path
      on a CPU copy of the table, and pairing checks of blob proofs and of
-     cell proofs (the cell's interpolant computed with Python ints);
+     cell proofs (the cell's interpolant computed with Python ints); the
+     2048-cell verification's four device points and the blob
+     verification's two lincombs against the plain versions on a CPU copy;
   5. timings (CUDA events) of each kernel and its plain version, with the
      least time the card could take; kernels shorter than their wrapper's
      host overhead are timed with their launches queued ahead.
@@ -47,6 +56,7 @@ IMAD_PER_CLOCK_PER_SM = 64  # 32-bit integer multiply-add, compute capability 9.
 MULADDS_PER_FMUL = 12 * (4 * 12 + 1)  # Fp CIOS: 12 rows of 4 twelve-word chains + m
 MULADDS_PER_RMUL = 8 * (4 * 8 + 1)  # Fr CIOS: 8 rows of 4 eight-word chains + m
 FMULS = {"seg_scan_phase1": 17, "add_unified": 23}
+N_SAMPLE_COLUMNS = 8  # a sampling node's columns (PeerDAS custody of 8 of 128)
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
 
@@ -280,7 +290,7 @@ def main() -> int:
         lambda: api.compute_cells_and_kzg_proofs_batch(cell_blobs, s),
     )
     peak_mem_cells = torch.cuda.max_memory_allocated()
-    for name in launch.WRAPPERS:
+    for name in ("seg_scan_phase1", "add_unified", "ntt_tile", "ntt_stage"):
         check(launches_cells[name] > 0, f"compute_cells_and_kzg_proofs_batch did not launch {name}")
     check(len(cells) == N_CELL_BLOBS and all(len(c) == 128 and all(len(x) == 2048 for x in c) for c in cells), "bad cells")
     check(len(cell_proofs) == N_CELL_BLOBS and all(len(p) == 128 for p in cell_proofs), "bad cell proofs")
@@ -292,6 +302,59 @@ def main() -> int:
             check(counts[name] > 0, f"compute_cells did not launch {name}")
         check(only == cells[i], f"compute_cells differs from the batch call's cells for blob {i}")
     log(f"compute_cells: {N_CELL_BLOBS} calls in {t_compute_cells:.3f} s, cells equal the batch call's")
+
+    # EIP-7594 verification: every cell of the 16 blobs in one call, then a
+    # sampling node's 8 columns of each; True, and False with one cell
+    # changed and with two proofs swapped. The verifier's constants (the
+    # 64-point monomial table, built on the card, and the coset-shift
+    # powers) are built first, outside the timed calls, as the tables above.
+    _, t_consts = timed(synced(lambda: (s.monomial64_table, s.inv_coset_shift_pows)))
+    log(f"cell verifier constants (64-point monomial table c = 13 on the card, coset-shift powers): {t_consts:.2f} s")
+    all_cells = (
+        [commits[b] for b in range(N_CELL_BLOBS) for _ in range(128)],
+        [j for _ in range(N_CELL_BLOBS) for j in range(128)],
+        [c for row in cells for c in row],
+        [p for row in cell_proofs for p in row],
+    )
+    columns = list(range(0, 128, 128 // N_SAMPLE_COLUMNS))
+    picked = [b * 128 + j for b in range(N_CELL_BLOBS) for j in columns]
+    verify_cases = {len(all_cells[0]): all_cells, len(picked): tuple([v[i] for i in picked] for v in all_cells)}
+    verify_walls, verify_peaks, verify_launches = {}, {}, {}
+    for count, (cb, idx, cl, pr) in verify_cases.items():
+        torch.cuda.reset_peak_memory_stats()
+        ok, counts, secs = counted_call(f"verify {count} cells", lambda: api.verify_cell_kzg_proof_batch(cb, idx, cl, pr, s))
+        verify_walls[f"cells {count}"], verify_launches[f"cells {count}"] = secs, counts
+        verify_peaks[f"cells {count}"] = torch.cuda.max_memory_allocated()
+        check(ok is True, f"verify_cell_kzg_proof_batch of {count} valid cells returned {ok}")
+        for name in ("seg_scan_phase1", "add_unified", "horner", "ntt_tile"):
+            check(counts[name] > 0, f"verify_cell_kzg_proof_batch did not launch {name}")
+        bad = bytearray(cl[7])
+        bad[-1] ^= 1  # still canonical
+        check(api.verify_cell_kzg_proof_batch(cb, idx, cl[:7] + [bytes(bad)] + cl[8:], pr, s) is False,
+              f"a changed cell passes verification ({count} cells)")
+        check(api.verify_cell_kzg_proof_batch(cb, idx, cl, [pr[1], pr[0]] + pr[2:], s) is False,
+              f"two swapped proofs pass verification ({count} cells)")
+    log(f"cell verification: {sorted(verify_cases)} cells True; a changed cell and two swapped proofs False")
+
+    # EIP-4844 verification of the 64 blobs; a proof of another blob gives
+    # False, a non-canonical blob raises
+    torch.cuda.reset_peak_memory_stats()
+    ok, counts, secs = counted_call(f"verify {N_BLOBS} blobs", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, proofs, s))
+    verify_walls[f"blobs {N_BLOBS}"], verify_launches[f"blobs {N_BLOBS}"] = secs, counts
+    verify_peaks[f"blobs {N_BLOBS}"] = torch.cuda.max_memory_allocated()
+    check(ok is True, f"verify_blob_kzg_proof_batch of {N_BLOBS} valid blobs returned {ok}")
+    for name in ("seg_scan_phase1", "add_unified", "horner"):
+        check(counts[name] > 0, f"verify_blob_kzg_proof_batch did not launch {name}")
+    check(api.verify_blob_kzg_proof_batch(blobs, commits, [proofs[1]] + proofs[1:], s) is False,
+          "a proof of another blob passes verification")
+    bad_blob = bytearray(blobs[3])
+    bad_blob[32 * 10 : 32 * 11] = R.to_bytes(32, "big")
+    try:
+        api.verify_blob_kzg_proof_batch(blobs[:3] + [bytes(bad_blob)] + blobs[4:], commits, proofs, s)
+        raise SmokeFailure("a non-canonical blob did not raise")
+    except ValueError as e:
+        check("not canonical" in str(e), f"a non-canonical blob raised {e!r}")
+    log(f"blob verification: {N_BLOBS} blobs True; a proof of another blob False; a non-canonical blob raises")
 
     # ---- 3. kernels against their plain versions -------------------------
     max_err = {name: 0 for name in launch.WRAPPERS}
@@ -432,6 +495,43 @@ def main() -> int:
             compare("ntt_stage", [got_s], [ref])
         log(f"B4/B5 {label}: exact ({log_n - cuda_fft.tile_stages(log_n)} B5 stages)")
 
+    # B3 at the verify paths' shapes: the window sums of the 2048-cell
+    # call's proof MSM (2 MSMs of 2048 points, c = 13, 20 windows), and of
+    # its first MSM alone; plain version on the card
+    cb, idx, cl, pr = verify_cases[N_CELL_BLOBS * 128]
+    unique_cb, cidx = eip7594._deduplicate_with_indices(cb)
+    r_cells = eip7594._batch_challenge_bytes(unique_cb, cidx, idx, cl, pr)
+    cell_inputs = eip7594._verify_cell_inputs(unique_cb, cidx, idx, cl, pr, r_cells, dev)
+    c_v = msm.default_window(cell_inputs[0].x.shape[-1], fixed_base=False)
+    win2 = msm.window_sums(cell_inputs[0], cell_inputs[1], c_v)
+    check(c_v == 13 and tuple(win2.x.shape) == (24, 2, 20), f"unexpected proof MSM windows c={c_v} {tuple(win2.x.shape)}")
+    win1 = g1.map_coords(lambda t: t[:, :1].contiguous(), win2)
+    for label, win in (("2 MSMs", win2), ("1 MSM", win1)):
+        got = cuda_msm.horner_windows(win, c_v)
+        compare("horner", got, cuda_msm.horner_windows_ref(win, c_v))
+        log(f"B3 {label} (c = {c_v}, 20 windows, the 2048-cell proof MSM): exact")
+
+    # B3 at 1024 lanes of 20 windows (doubled Lagrange table points, so zz
+    # is not one) with edge lanes: all windows the identity (lane 0); the
+    # identity at the start and in one window (lane 1); W_18 equal to the
+    # doubled accumulator 2^13 W_19 (P == Q, lane 2) and its negative
+    # (P == -Q, lane 3); plain version on the card
+    aff = g1.G1Aff(table.x[..., :1024].transpose(1, 2), table.y[..., :1024].transpose(1, 2), table.inf[:, :1024].T)
+    wide = g1.map_coords(lambda t: t.contiguous(), g1.dbl(g1.from_affine(aff)))  # (24, 1024, 20)
+    lead = g1.map_coords(lambda t: t[:, 2:4, 19], wide)
+    for _ in range(13):
+        lead = g1.dbl(lead)
+    for k in range(4):
+        wide[k][:, 2, 18] = lead[k][:, 0]
+        wide[k][:, 3, 18] = g1.neg(lead)[k][:, 1]
+    for t in (wide.zz, wide.zzz):
+        t[:, 0, :] = 0
+        t[:, 1, 19] = 0
+        t[:, 1, 7] = 0
+    got = cuda_msm.horner_windows(wide, 13)
+    compare("horner", got, cuda_msm.horner_windows_ref(wide, 13))
+    log("B3 1024 lanes (c = 13, 20 windows, with identity, P == Q and P == -Q lanes): exact against the plain version on the card")
+
     # ---- 4. checks of the result -----------------------------------------
     with open(setup_path) as f:
         tokens = f.read().split()
@@ -492,6 +592,26 @@ def main() -> int:
     check(c_cpu == commits[0], "commitment differs from the CPU path")
     check(p_cpu == proofs[0], "proof differs from the CPU path")
     log(f"CPU cross-check of one commitment and one proof: equal ({t_cpu:.1f} s on the host)")
+
+    # the 2048-cell verification's four device points (its two
+    # variable-base MSMs, the aggregation, the column iFFTs and the
+    # interpolation commitment) and the 64-blob verification's two lincombs
+    # (one batch-2 variable-base MSM over 129 points), on the card and
+    # through the plain versions on a CPU copy
+    cpu_s.monomial64_table = msm.FixedBaseTable(*(t.cpu() for t in s.monomial64_table[:3]), s.monomial64_table.c)
+
+    def to_cpu(x):
+        return type(x)(*(t.cpu() for t in x)) if isinstance(x, tuple) else x.cpu()
+
+    on_card = g1.affine_to_ints(eip7594._verify_cell_body(*cell_inputs, s))
+    on_cpu, t_cpu = timed(lambda: g1.affine_to_ints(eip7594._verify_cell_body(*map(to_cpu, cell_inputs), cpu_s)))
+    check(on_card == on_cpu, "the 2048-cell verification's points differ from the CPU path")
+    lin_inputs = eip4844._lincomb_inputs(blobs, commits, proofs, s)
+    lin_card = g1.affine_to_ints(eip4844._lincomb_body(*lin_inputs))
+    lin_cpu = g1.affine_to_ints(eip4844._lincomb_body(*map(to_cpu, lin_inputs)))
+    check(lin_card == lin_cpu, "the 64-blob verification's lincombs differ from the CPU path")
+    log(f"CPU cross-check of the 2048-cell verification's four points ({t_cpu:.1f} s on the host) "
+        f"and the {N_BLOBS}-blob verification's two lincombs: equal")
 
     n_pair = 8
     for i in range(n_pair):
@@ -565,6 +685,29 @@ def main() -> int:
             fft_timing("ntt_stage", f"{label} stage {st}", lambda: cuda_fft.ntt_stage(y, st, inverse),
                        lambda: cuda_fft.ntt_stage_ref(y, st, inverse), B * n // 2, B, n)
 
+    # B3 at the 2048-cell call's two launches: the proof MSM (2 MSMs, c =
+    # 13, 20 windows) and the commitment MSM (1 MSM of 16 points, c = 8, 32
+    # windows). Two bounds: the card's throughput (operations over every
+    # SM's multiply-add rate, or bytes) and the latency of one thread's
+    # dependent chain of (w - 1)(9 c + 23) products at the SM clock.
+    c_c = msm.default_window(cell_inputs[2].x.shape[-1], fixed_base=False)
+    win_c = msm.window_sums(cell_inputs[2], cell_inputs[3], c_c)
+    b3 = {}
+    for label, win, c_w in (("proof MSM", win2, c_v), ("commitment MSM", win_c, c_c)):
+        nb_w, w_w = win.x.shape[1:]
+        ms = cuda_ms(torch, lambda: cuda_msm.horner_windows(win, c_w), 20)
+        plain = cuda_ms(torch, lambda: cuda_msm.horner_windows_ref(win, c_w), 2)
+        prods = (w_w - 1) * (9 * c_w + 23)
+        t_ops = nb_w * prods * MULADDS_PER_FMUL / peak_imad * 1e3
+        t_bytes = 4 * 24 * 4 * nb_w * (w_w + 1) / HBM_BYTES_PER_S * 1e3  # w windows in, one point out
+        t_lat = prods * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
+        b3[label] = (ms, plain, t_ops, t_bytes, t_lat)
+        log(f"horner {label} ({nb_w} MSMs, c = {c_w}, {w_w} windows): {ms:.4f} ms (plain on the card {plain:.1f} ms); "
+            f"throughput bound {max(t_ops, t_bytes):.5f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}; "
+            f"operations {t_ops:.5f}, bytes {t_bytes:.6f}); latency bound {t_lat:.4f} ms "
+            f"({prods} dependent products, {prods * MULADDS_PER_FMUL} multiply-adds at {sm_clock_mhz:.0f} MHz) [{card}]")
+    t_b3, t_b3_plain, b3_ops, b3_bytes, _ = b3["proof MSM"]
+
     rows_out = []
     for name, ms, plain_ms, bound, by, source, replaces in (
         ("seg_scan_phase1", t_b1, t_plain_b1 * 1e3, max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3,
@@ -573,6 +716,8 @@ def main() -> int:
         ("add_unified", t_b2, t_b2_plain, max(b2_ops / peak_imad, b2_bytes / HBM_BYTES_PER_S) * 1e3,
          "operations" if b2_ops / peak_imad >= b2_bytes / HBM_BYTES_PER_S else "bytes",
          "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:209"),
+        ("horner", t_b3, t_b3_plain, max(b3_ops, b3_bytes), "operations" if b3_ops >= b3_bytes else "bytes",
+         "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:307"),
     ) + tuple(
         (name, r["ms"], r["plain"], r["bound"], "operations" if r["ops"] >= r["bytes"] else "bytes",
          "kzg_tpu_torch/csrc/fft_kernels.cu", replaces)
@@ -597,8 +742,11 @@ def main() -> int:
             f"bytes {r['bytes']:.4f} ms at 64 B/value, {r['bytes32']:.4f} ms at 32 B/value; "
             f"the kernel at {r['bound'] / r['ms']:.0%} of its bound, "
             f"{r['bound32'] / r['ms']:.0%} of the bound at 32 B/value [{card}]")
-    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {M2} lanes; "
+    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {M2} lanes; B3 at the 2048-cell proof MSM's launch; "
         f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches")
+    for label, secs in verify_walls.items():
+        log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "
+            f"launches {verify_launches[label]} [{card}]")
     log(f"main path launches: {main_launches}")
     log(f"peak device memory: EIP-4844 main path {peak_mem / 2**30:.2f} GiB; "
         f"EIP-7594 {N_CELL_BLOBS}-blob call {peak_mem_cells / 2**30:.2f} GiB")

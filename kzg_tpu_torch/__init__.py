@@ -1,9 +1,10 @@
 """kzg_tpu_torch: the PyTorch and CUDA port of kzg_tpu, for NVIDIA Hopper.
 
-EIP-4844 blob commitments and proofs and EIP-7594 cells and FK20 cell
-proofs, with the fixed-base MSM's bucket scan and complete point addition
-and the Fr NTT's stages in hand-written CUDA kernels (csrc/). Imports
-torch and numpy, and nothing of JAX or of the kzg_tpu package.
+EIP-4844 blob commitments, proofs and their verification, and EIP-7594
+cells, FK20 cell proofs and batch verification of cell proofs, with the
+MSMs' bucket scan, complete point addition and window combination and the
+Fr NTT's stages in hand-written CUDA kernels (csrc/). Imports torch and
+numpy, and nothing of JAX or of the kzg_tpu package.
 """
 
 from .api import (
@@ -14,8 +15,14 @@ from .api import (
     compute_cells,
     compute_cells_and_kzg_proofs,
     compute_cells_and_kzg_proofs_batch,
+    compute_kzg_proof,
+    compute_verify_cell_kzg_proof_batch_challenge,
     load_trusted_setup,
     load_trusted_setup_file,
+    verify_blob_kzg_proof,
+    verify_blob_kzg_proof_batch,
+    verify_cell_kzg_proof_batch,
+    verify_kzg_proof,
 )
 
 __all__ = [
@@ -26,6 +33,12 @@ __all__ = [
     "compute_cells",
     "compute_cells_and_kzg_proofs",
     "compute_cells_and_kzg_proofs_batch",
+    "compute_kzg_proof",
+    "compute_verify_cell_kzg_proof_batch_challenge",
     "load_trusted_setup",
     "load_trusted_setup_file",
+    "verify_blob_kzg_proof",
+    "verify_blob_kzg_proof_batch",
+    "verify_cell_kzg_proof_batch",
+    "verify_kzg_proof",
 ]

@@ -1,5 +1,6 @@
-"""The EIP-4844 commit and prove functions and the EIP-7594 cell functions
-under the names of the JAX package's api.py, on a torch device.
+"""The EIP-4844 and EIP-7594 functions under the names of the JAX
+package's api.py, on a torch device: commit, prove and verify blobs;
+compute cells and their proofs, and verify cell proofs in a batch.
 
     from kzg_tpu_torch import api as kzg
     s = kzg.load_trusted_setup_file("trusted_setup.txt")  # on the card
@@ -48,6 +49,24 @@ def compute_blob_kzg_proof_batch(
     return _e4.compute_blob_kzg_proof_batch(blobs, commitments, s)
 
 
+def compute_kzg_proof(blob: bytes, z_bytes: bytes, s: Settings) -> Tuple[bytes, bytes]:
+    return _e4.compute_kzg_proof(blob, z_bytes, s)
+
+
+def verify_kzg_proof(commitment: bytes, z_bytes: bytes, y_bytes: bytes, proof: bytes, s: Settings) -> bool:
+    return _e4.verify_kzg_proof(commitment, z_bytes, y_bytes, proof, s)
+
+
+def verify_blob_kzg_proof(blob: bytes, commitment: bytes, proof: bytes, s: Settings) -> bool:
+    return _e4.verify_blob_kzg_proof(blob, commitment, proof, s)
+
+
+def verify_blob_kzg_proof_batch(
+    blobs: Sequence[bytes], commitments: Sequence[bytes], proofs: Sequence[bytes], s: Settings
+) -> bool:
+    return _e4.verify_blob_kzg_proof_batch(blobs, commitments, proofs, s)
+
+
 def compute_cells(blob: bytes, s: Settings) -> List[bytes]:
     cells, _ = _e7.compute_cells_and_kzg_proofs(blob, s, with_proofs=False)
     return cells
@@ -61,3 +80,25 @@ def compute_cells_and_kzg_proofs_batch(
     blobs: Sequence[bytes], s: Settings, with_proofs: bool = True
 ) -> Tuple[List[List[bytes]], List[List[bytes]]]:
     return _e7.compute_cells_and_kzg_proofs_batch(blobs, s, with_proofs)
+
+
+def verify_cell_kzg_proof_batch(
+    commitments: Sequence[bytes],
+    cell_indices: Sequence[int],
+    cells: Sequence[bytes],
+    proofs: Sequence[bytes],
+    s: Settings,
+) -> bool:
+    return _e7.verify_cell_kzg_proof_batch(commitments, cell_indices, cells, proofs, s)
+
+
+def compute_verify_cell_kzg_proof_batch_challenge(
+    commitments: Sequence[bytes],
+    commitment_indices: Sequence[int],
+    cell_indices: Sequence[int],
+    cells: Sequence[bytes],
+    proofs: Sequence[bytes],
+) -> int:
+    return _e7.compute_verify_cell_kzg_proof_batch_challenge(
+        commitments, commitment_indices, cell_indices, cells, proofs
+    )

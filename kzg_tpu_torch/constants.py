@@ -97,5 +97,8 @@ BYTES_PER_PROOF = BYTES_PER_G1
 TRUSTED_SETUP_NUM_G1_POINTS = FIELD_ELEMENTS_PER_BLOB  # 4096
 TRUSTED_SETUP_NUM_G2_POINTS = 65
 
-# Fiat-Shamir domain separator of the blob proof challenge.
+# Fiat-Shamir domain separators: the blob proof challenge, and the batch
+# challenges of blob and of cell verification.
 FIAT_SHAMIR_PROTOCOL_DOMAIN = b"FSBLOBVERIFY_V1_"
+RANDOM_CHALLENGE_KZG_BATCH_DOMAIN = b"RCKZGBATCH___V1_"
+RANDOM_CHALLENGE_KZG_CELL_BATCH_DOMAIN = b"RCKZGCBATCH__V1_"

@@ -31,3 +31,11 @@ def table_from_jax(x, y, inf, c: int, device="cpu") -> FixedBaseTable:
         torch.from_numpy(inf.astype(bool)).to(device),
         int(c),
     )
+
+
+def interp_consts_from_jax(inv_shifts, table_slice, device="cpu"):
+    """The JAX package's cell-verify constants (kzg_tpu/eip7594.py:
+    _interp_consts: the inverse coset-shift powers (16, 128, 64) and the
+    64-column (x, y, inf, c) slice of its monomial table) -> this package's
+    (TorchKZGSettings.inv_coset_shift_pows, .monomial64_table)."""
+    return limbs_from_jax(inv_shifts, device), table_from_jax(*table_slice, device=device)

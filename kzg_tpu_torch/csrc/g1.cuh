@@ -2,10 +2,10 @@
 //
 // The same formulas, in the same order, and the same branchless selects of
 // the edge cases (identity operands, P == Q, P == -Q) as the package's
-// ops/g1.py: madd_unified (XYZZ + affine, madd-2008-s with the mdbl
-// fallback) and add_unified (XYZZ + XYZZ, add-2008-s with the dbl-2008-s
-// fallback). Every field result is fully reduced, so the points equal the
-// plain PyTorch version's limb for limb.
+// ops/g1.py: dbl (dbl-2008-s), madd_unified (XYZZ + affine, madd-2008-s
+// with the mdbl fallback) and add_unified (XYZZ + XYZZ, add-2008-s with
+// the dbl-2008-s fallback). Every field result is fully reduced, so the
+// points equal the plain PyTorch version's limb for limb.
 #pragma once
 #include "field.cuh"
 
@@ -27,6 +27,24 @@ __device__ __forceinline__ Xyzz psel(bool c, const Xyzz& a, const Xyzz& b) {
 __device__ __forceinline__ Xyzz from_affine(const Aff& a) {
     Fp zz = fsel(a.inf, fzero(), fone());
     return {a.x, a.y, zz, zz};
+}
+
+// XYZZ doubling (dbl-2008-s, a = 0): 9 products, in the order of
+// ops/g1.py:dbl. The identity doubles to the identity (zz3 = V * zz = 0).
+__device__ __forceinline__ Xyzz dbl(const Xyzz& p) {
+    Fp u = fadd(p.y, p.y);
+    Fp v = fmul(u, u);
+    Fp xx = fmul(p.x, p.x);
+    Fp w = fmul(u, v);
+    Fp s = fmul(p.x, v);
+    Fp m = fadd(fadd(xx, xx), xx);
+    Fp mm = fmul(m, m);
+    Fp wy = fmul(w, p.y);
+    Fp zz3 = fmul(v, p.zz);
+    Fp zzz3 = fmul(w, p.zzz);
+    Fp x3 = fsub(mm, fadd(s, s));
+    Fp y3a = fmul(m, fsub(s, x3));
+    return {x3, fsub(y3a, wy), zz3, zzz3};
 }
 
 __device__ __forceinline__ Xyzz madd_unified(const Xyzz& p, const Aff& a) {
@@ -60,8 +78,8 @@ __device__ __forceinline__ Xyzz madd_unified(const Xyzz& p, const Aff& a) {
     Fp wy = fmul(W, a.y);
 
     Xyzz res = {x3, fsub(y3a, sppp), zz3, zzz3};
-    Xyzz dbl = {x3d, fsub(msd, wy), V, W};
-    res = psel(need_dbl, dbl, res);
+    Xyzz dres = {x3d, fsub(msd, wy), V, W};
+    res = psel(need_dbl, dres, res);
     res = psel(inf2, p, res);
     return psel(inf1, from_affine(a), res);
 }
@@ -107,8 +125,8 @@ __device__ __forceinline__ Xyzz add_unified(const Xyzz& p, const Xyzz& q) {
     Fp y3da = fmul(m, fsub(s, x3d));
 
     Xyzz res = {x3, fsub(y3a, sppp), zz3, zzz3};
-    Xyzz dbl = {x3d, fsub(y3da, wy), zz3d, zzz3d};
-    res = psel(need_dbl, dbl, res);
+    Xyzz dres = {x3d, fsub(y3da, wy), zz3d, zzz3d};
+    res = psel(need_dbl, dres, res);
     res = psel(inf2, p, res);
     return psel(inf1, q, res);
 }

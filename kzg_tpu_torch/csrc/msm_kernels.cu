@@ -1,6 +1,6 @@
-// The two kernels of the fixed-base MSM on the EIP-4844 commit and prove
-// path, for sm_90a, each with a plain C launcher (bound with ctypes from
-// kzg_tpu_torch/kernels.py; wrappers in kzg_tpu_torch/ops/cuda_msm.py).
+// The three kernels of the MSMs, for sm_90a, each with a plain C launcher
+// (bound with ctypes from kzg_tpu_torch/kernels.py; wrappers in
+// kzg_tpu_torch/ops/cuda_msm.py).
 //
 // B1  seg_scan_phase1: replaces kzg_tpu/ops/pallas_msm.py:_phase1_packed_call
 //     (entry seg_scan_phase1_mem). Phase 1 of the bucket segmented scan:
@@ -26,8 +26,22 @@
 //     whole addition in registers, 16-bit limb loads and stores coalesced
 //     across the threads of a warp; the launcher takes any lane count.
 //
-// Both reduce every field value fully to [0, p), so their outputs equal the
-// plain PyTorch versions limb for limb.
+// B3  horner: replaces kzg_tpu/ops/pallas_msm.py:_horner_call (entry
+//     horner_windows). The window combination of the variable-base MSM,
+//     acc = sum_j 2^(c j) W_j from the high window to the low one: c
+//     doublings and one complete addition per window, the first step
+//     taking W_{w-1} as it is. On the verify paths there are one or two
+//     MSMs (nb <= 2), so the work is one dependent chain of
+//     (w - 1)(9 c + 23) Montgomery products per lane: bound by the
+//     latency of one thread's chain, far from the card's throughput.
+//     Design: one thread per MSM lane, the XYZZ accumulator in registers
+//     for all w windows, each window read from device memory as it is
+//     needed; any lane count, in blocks of up to 128 threads. (The TPU
+//     kernel's (8, 128) lane tile, VMEM scratch and grid over the windows
+//     are not carried over.)
+//
+// All three reduce every field value fully to [0, p), so their outputs
+// equal the plain PyTorch versions limb for limb.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -96,6 +110,26 @@ __global__ void __launch_bounds__(BLOCK) add_unified_kernel(
     store_point(ox, oy, ozz, ozzz, i, M, add_unified(p, q));
 }
 
+// win: (24, nb, w) 16-bit limbs, window j of MSM b at column b * w + j;
+// out: (24, nb).
+__global__ void __launch_bounds__(BLOCK) horner_kernel(
+    const int32_t* __restrict__ wx, const int32_t* __restrict__ wy,
+    const int32_t* __restrict__ wzz, const int32_t* __restrict__ wzzz,
+    int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ ozz,
+    int32_t* __restrict__ ozzz, int nb, int w, int c) {
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= nb) return;
+    const size_t stride = (size_t)nb * w;
+    const size_t base = (size_t)b * w;
+    Xyzz acc = load_point(wx, wy, wzz, wzzz, base + w - 1, stride);
+    for (int j = w - 2; j >= 0; j--) {
+#pragma unroll 1
+        for (int k = 0; k < c; k++) acc = dbl(acc);
+        acc = add_unified(acc, load_point(wx, wy, wzz, wzzz, base + j, stride));
+    }
+    store_point(ox, oy, ozz, ozzz, b, nb, acc);
+}
+
 }  // namespace
 
 extern "C" int kzg_seg_scan_phase1(const void* rows, const void* idx, const void* first, void* ox,
@@ -115,5 +149,15 @@ extern "C" int kzg_add_unified(const void* px, const void* py, const void* pzz, 
         (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz, (const int32_t*)pzzz,
         (const int32_t*)qx, (const int32_t*)qy, (const int32_t*)qzz, (const int32_t*)qzzz,
         (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, M);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_horner(const void* wx, const void* wy, const void* wzz, const void* wzzz, void* ox,
+                          void* oy, void* ozz, void* ozzz, int nb, int w, int c, void* stream) {
+    const int grid = (nb + BLOCK - 1) / BLOCK;
+    const int block = nb < BLOCK ? nb : BLOCK;
+    horner_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)wx, (const int32_t*)wy, (const int32_t*)wzz, (const int32_t*)wzzz,
+        (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, nb, w, c);
     return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
-"""EIP-4844 blob commitments and proofs on a torch device.
+"""EIP-4844 blob commitments, proofs and their verification on a torch
+device.
 
-The counterpart of the JAX package's eip4844.py for commit and prove.
-Everything O(blob) runs on the settings' device, batched over blobs: byte
--> limb conversion with the canonicality check, barycentric evaluation,
-the quotient, the fixed-base MSM and the affine conversion. The host does
-the SHA-256 Fiat-Shamir challenges and the 48-byte point codecs (native
+The counterpart of the JAX package's eip4844.py. Everything O(blob) runs
+on the settings' device, batched over blobs: byte -> limb conversion with
+the canonicality check, barycentric evaluation, the quotient, the
+fixed-base MSM and the affine conversion; batch verification adds the
+r-weighted lincombs as one variable-base MSM. The host does the SHA-256
+Fiat-Shamir challenges, the 48-byte point codecs and the pairings (native
 core). Batches run in chunks of BATCH_CHUNK blobs.
 """
 
@@ -27,6 +29,7 @@ from .constants import (
     G2_GENERATOR_Y_C0,
     G2_GENERATOR_Y_C1,
     P_MOD,
+    RANDOM_CHALLENGE_KZG_BATCH_DOMAIN,
     R_MOD as R,
 )
 from .ops import field as fl
@@ -102,14 +105,33 @@ def _quotient_body(poly_m, y_m, z_m, inv_diff, was_zero, roots_m):
     return fl.to_canonical(FR, q)
 
 
-def _prove_body(poly_limbs, z_limbs, roots_m, table: dmsm.FixedBaseTable) -> dg1.G1Aff:
+def _prove_body(poly_limbs, z_limbs, roots_m, table: dmsm.FixedBaseTable):
     """Canonical blob limbs (16, B, n) + canonical z limbs (16, B, 1) ->
-    proofs as affine points (B,)."""
+    (proofs as affine points (B,), the evaluations y (16, B, 1) in
+    Montgomery form)."""
     poly_m = fl.from_canonical(FR, poly_limbs)
     z_m = fl.from_canonical(FR, z_limbs)
     y_m, inv_diff, was_zero = _eval_barycentric_body(poly_m, z_m, roots_m)
     q = _quotient_body(poly_m, y_m, z_m, inv_diff, was_zero, roots_m)
-    return dg1.to_affine(dmsm.msm_fixed(table, q))
+    return dg1.to_affine(dmsm.msm_fixed(table, q)), y_m
+
+
+def _eval_body(raw: torch.Tensor, z_limbs: torch.Tensor, roots_m) -> torch.Tensor:
+    """(B, n, 32) uint8 blob bytes + canonical z limbs (16, B, 1) ->
+    canonical evaluations y (16, B, 1). Raises before the evaluation if a
+    scalar is not canonical."""
+    poly, ok = _bytes_to_limbs(raw)
+    if not bool(ok.all()):
+        raise ValueError("Invalid blob: scalar is not canonical")
+    y_m, _, _ = _eval_barycentric_body(fl.from_canonical(FR, poly), fl.from_canonical(FR, z_limbs), roots_m)
+    return fl.to_canonical(FR, y_m)
+
+
+def _lincomb_body(points: dg1.G1Aff, scalars: torch.Tensor) -> dg1.G1Aff:
+    """The r-weighted lincombs of batch verification as one batch-2
+    variable-base MSM over the same points (24, m): scalars (16, 2, m).
+    Returns the two sums as affine points (2,)."""
+    return dg1.to_affine(dmsm.msm(dg1.repeat_batch(points, 2), scalars))
 
 
 def _commit_body(raw: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1Aff:
@@ -152,6 +174,31 @@ def compute_challenge(blob_bytes: bytes, commitment_bytes: bytes) -> int:
     h.update(blob_bytes)
     h.update(commitment_bytes)
     return hash_to_bls_field(h.digest())
+
+
+def compute_powers(base: int, n: int) -> List[int]:
+    """[1, base, base^2, ...] mod r, n of them."""
+    out, acc = [], 1
+    for _ in range(n):
+        out.append(acc)
+        acc = acc * base % R
+    return out
+
+
+def _batch_challenge_r(commitments_b, zs, ys, proofs_b) -> int:
+    """The Fiat-Shamir challenge r of batch verification, over the raw
+    commitment and proof bytes and the 32-byte big-endian z and y."""
+    n = len(commitments_b)
+    data = bytearray()
+    data += RANDOM_CHALLENGE_KZG_BATCH_DOMAIN
+    data += FIELD_ELEMENTS_PER_BLOB.to_bytes(8, "big")
+    data += n.to_bytes(8, "big")
+    for i in range(n):
+        data += commitments_b[i]
+        data += zs[i].to_bytes(32, "big")
+        data += ys[i].to_bytes(32, "big")
+        data += proofs_b[i]
+    return hash_to_bls_field(hashlib.sha256(bytes(data)).digest())
 
 
 def _chunks(seq, k=BATCH_CHUNK):
@@ -202,7 +249,7 @@ def compute_blob_kzg_proof_batch(
         chunk = blobs[lo : lo + BATCH_CHUNK]
         poly = torch.from_numpy(bs.blobs_to_scalars(chunk)).to(s.device)
         z = torch.from_numpy(fl.ints_to_limbs(zs[lo : lo + BATCH_CHUNK], FR.n_limbs))
-        out.extend(_affine_to_bytes(_prove_body(poly, z[:, :, None].to(s.device), s.roots_brp_mont, table)))
+        out.extend(_affine_to_bytes(_prove_body(poly, z[:, :, None].to(s.device), s.roots_brp_mont, table)[0]))
     return out
 
 
@@ -223,3 +270,91 @@ def _check_proof_single(s: TorchKZGSettings, commitment, proof, z: int, y: int) 
     neg_y = None if y_g1 is None else (y_g1[0], (P_MOD - y_g1[1]) % P_MOD)
     lhs = native.g1_add(native.g1_add(commitment, neg_y), native.g1_mul(proof, z))
     return native.pairings_verify(lhs, G2_GENERATOR, proof, s.g2_monomial[1])
+
+
+def compute_kzg_proof(blob_bytes: bytes, z_bytes: bytes, s: TorchKZGSettings) -> Tuple[bytes, bytes]:
+    """The proof of the blob's polynomial at z, and y = p(z) (32 bytes,
+    big-endian): the prove body at an arbitrary z."""
+    _check_blob_length(blob_bytes)
+    z = bs.fr_from_bytes(z_bytes)  # (16, 1); raises on length and canonicality
+    poly = torch.from_numpy(bs.blobs_to_scalars([blob_bytes])).to(s.device)
+    z_limbs = torch.from_numpy(z)[:, :, None].to(s.device)
+    aff, y_m = _prove_body(poly, z_limbs, s.roots_brp_mont, s.lagrange_table)
+    y = fl.to_canonical(FR, y_m)[:, :, 0].cpu().numpy()
+    return _affine_to_bytes(aff)[0], bs.frs_to_bytes(y)
+
+
+def verify_kzg_proof(
+    commitment_bytes: bytes, z_bytes: bytes, y_bytes: bytes, proof_bytes: bytes, s: TorchKZGSettings
+) -> bool:
+    """One opening, checked on the host: decompress, then one pairing."""
+    if len(commitment_bytes) != 48 or len(proof_bytes) != 48:
+        raise ValueError("Invalid commitment/proof length")
+    if len(z_bytes) != 32 or len(y_bytes) != 32:
+        raise ValueError("Invalid field element length")
+    commitment, proof = native.g1_decompress_batch(commitment_bytes + proof_bytes)
+    bs.fr_from_bytes(z_bytes)  # canonicality (raises)
+    bs.fr_from_bytes(y_bytes)
+    return _check_proof_single(s, commitment, proof, int.from_bytes(z_bytes, "big"), int.from_bytes(y_bytes, "big"))
+
+
+def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings):
+    """The points [commitments | proofs | G] (24, 2n + 1) on the device and
+    the scalars (16, 2, 2n + 1) of the two lincombs of batch verification:
+    the challenges z_i, the evaluations y_i = p_i(z_i) on the device (one
+    pass per chunk of BATCH_CHUNK blobs; raises if a blob scalar is not
+    canonical), the points decompressed (raises on an invalid one), and the
+    powers r_i of the batch challenge."""
+    n = len(blobs)
+    zs = [compute_challenge(b, c) for b, c in zip(blobs, commitments_bytes)]
+    ys = []
+    for lo in range(0, n, BATCH_CHUNK):
+        chunk = blobs[lo : lo + BATCH_CHUNK]
+        raw = np.frombuffer(b"".join(chunk), dtype=np.uint8).reshape(len(chunk), FIELD_ELEMENTS_PER_BLOB, 32)
+        z = torch.from_numpy(fl.ints_to_limbs(zs[lo : lo + BATCH_CHUNK], FR.n_limbs))[:, :, None]
+        ys += fl.limbs_to_ints(_eval_body(torch.from_numpy(raw.copy()).to(s.device), z.to(s.device), s.roots_brp_mont))
+    commitments = native.g1_decompress_batch(b"".join(commitments_bytes))
+    proofs = native.g1_decompress_batch(b"".join(proofs_bytes))
+    r_powers = compute_powers(_batch_challenge_r(commitments_bytes, zs, ys, proofs_bytes), n)
+    rz = [r * z % R for r, z in zip(r_powers, zs)]
+    ry = sum(r * y % R for r, y in zip(r_powers, ys)) % R
+    scalars = np.stack(
+        [
+            fl.ints_to_limbs([0] * n + r_powers + [0], FR.n_limbs),
+            fl.ints_to_limbs(r_powers + rz + [(R - ry) % R], FR.n_limbs),
+        ],
+        axis=1,
+    )
+    points = dg1.affine_from_ints(commitments + proofs + [G1_GENERATOR], s.device)
+    return points, torch.from_numpy(scalars).to(s.device)
+
+
+def verify_blob_kzg_proof_batch(
+    blobs: Sequence[bytes], commitments_bytes: Sequence[bytes], proofs_bytes: Sequence[bytes], s: TorchKZGSettings
+) -> bool:
+    """Batch verification of blob proofs. On the device: the evaluations
+    y_i = p_i(z_i) (one pass per chunk of BATCH_CHUNK blobs), and the
+    r-weighted lincombs as one batch-2 variable-base MSM over the 2n + 1
+    points [commitments | proofs | G]:
+        proof_lincomb = sum_i r_i P_i                  (scalars 0 | r_i | 0)
+        rhs = sum_i r_i C_i + sum_i r_i z_i P_i - (sum_i r_i y_i) G
+                                                       (r_i | r_i z_i | -sum)
+    On the host: the challenges and one pairing check,
+    e(proof_lincomb, [s]_2) == e(rhs, H)."""
+    blobs, commitments_bytes, proofs_bytes = list(blobs), list(commitments_bytes), list(proofs_bytes)
+    if not (len(blobs) == len(commitments_bytes) == len(proofs_bytes)):
+        raise ValueError("Invalid amount of arguments")
+    if not blobs:
+        return True
+    if any(len(c) != 48 for c in commitments_bytes) or any(len(p) != 48 for p in proofs_bytes):
+        raise ValueError("Invalid commitment/proof length")
+    for b in blobs:
+        _check_blob_length(b)
+    proof_lincomb, rhs = dg1.affine_to_ints(_lincomb_body(*_lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s)))
+    return native.pairings_verify(proof_lincomb, s.g2_monomial[1], rhs, G2_GENERATOR)
+
+
+def verify_blob_kzg_proof(
+    blob_bytes: bytes, commitment_bytes: bytes, proof_bytes: bytes, s: TorchKZGSettings
+) -> bool:
+    return verify_blob_kzg_proof_batch([blob_bytes], [commitment_bytes], [proof_bytes], s)

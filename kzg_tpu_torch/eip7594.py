@@ -1,7 +1,8 @@
-"""EIP-7594 (PeerDAS) cells and FK20 cell proofs on a torch device.
+"""EIP-7594 (PeerDAS) cells, FK20 cell proofs and batch verification of
+cell proofs on a torch device.
 
-The counterpart of the JAX package's eip7594.py for compute_cells and
-compute_cells_and_kzg_proofs. Per blob, on the settings' device and batched
+The counterpart of the JAX package's eip7594.py for compute_cells,
+compute_cells_and_kzg_proofs and verify_cell_kzg_proof_batch. Per blob, on the settings' device and batched
 over blobs: byte -> limb conversion with the canonicality check, the
 Lagrange -> monomial conversion (inverse FFT of 4096), the extension (FFT of
 8192 over the zero-padded polynomial) that gives the 128 cells, and the
@@ -10,7 +11,16 @@ the column MSM (fixed-base, one table per column) and the G1 half
 convolution. The cells and the proofs share one Lagrange -> monomial
 conversion. The host does the 48-byte point codec (native core). Batches
 run in chunks of BATCH_CHUNK blobs.
+
+Batch verification runs on the device: the cells' byte -> limb conversion
+with the canonicality check, the proof and commitment lincombs
+(variable-base MSMs), and the aggregated interpolation polynomial (the
+r-weighted cells summed into their columns, an inverse FFT of 64 per
+column, the coset unshift, the column sum) with its fixed-base commitment.
+The host does the Fiat-Shamir challenge, the point codec and one pairing.
 """
+
+import hashlib
 
 from functools import lru_cache
 from typing import List, Sequence, Tuple
@@ -24,18 +34,25 @@ from .constants import (
     BYTES_PER_CELL,
     CELLS_PER_EXT_BLOB,
     FIELD_ELEMENTS_PER_BLOB,
+    FIELD_ELEMENTS_PER_CELL,
+    FIELD_ELEMENTS_PER_EXT_BLOB,
+    P_MOD,
+    RANDOM_CHALLENGE_KZG_CELL_BATCH_DOMAIN,
+    R_MOD as R,
+    root_of_unity,
 )
-from .eip4844 import _bytes_to_limbs, _check_blob_length
+from .eip4844 import G2_GENERATOR, _bytes_to_limbs, _check_blob_length, compute_powers, hash_to_bls_field
 from .ops import field as fl
 from .ops import g1 as dg1
 from .ops import msm as dmsm
 from .ops.fft import bit_reverse, fft, ifft
 from .ops.field import FR
 from .ops.g1fft import fk20_half_convolution
-from .settings import TorchKZGSettings
+from .settings import CELL_INDICES_RBL, TorchKZGSettings
 
 N = FIELD_ELEMENTS_PER_BLOB
 K2 = CELLS_PER_EXT_BLOB  # 128
+CELL = FIELD_ELEMENTS_PER_CELL  # 64
 # Blobs per device pass. The column MSM of one blob scans 32 x 128 x 64 =
 # 262,144 elements and the half convolution runs 128 x 65 ladders, so a
 # chunk bounds the working set (peak device memory in PERF.md).
@@ -148,3 +165,205 @@ def compute_cells_and_kzg_proofs(
     cells, proofs = compute_cells_and_kzg_proofs_batch([blob_bytes], s, with_proofs)
     return cells[0], (proofs[0] if with_proofs else [])
 
+
+
+# ---------------------------------------------------------------------------
+# Batch verification of cell proofs
+# ---------------------------------------------------------------------------
+
+
+def _deduplicate_with_indices(items):
+    """(unique items in first-seen order, index of each item among them)."""
+    unique, index_map, indices = [], {}, []
+    for it in items:
+        if it not in index_map:
+            index_map[it] = len(unique)
+            unique.append(it)
+        indices.append(index_map[it])
+    return unique, indices
+
+
+def _batch_challenge_bytes(commitments_bytes, commitment_indices, cell_indices, cells_bytes, proofs_bytes) -> int:
+    """Fiat-Shamir challenge r of verify_cell_kzg_proof_batch over the raw
+    wire bytes (a cell's bytes are its scalars' 32-byte serialisations)."""
+    data = bytearray()
+    data += RANDOM_CHALLENGE_KZG_CELL_BATCH_DOMAIN
+    data += FIELD_ELEMENTS_PER_BLOB.to_bytes(8, "big")
+    data += CELL.to_bytes(8, "big")
+    data += len(commitments_bytes).to_bytes(8, "big")
+    data += len(cell_indices).to_bytes(8, "big")
+    for cb in commitments_bytes:
+        data += cb
+    for i in range(len(cell_indices)):
+        data += commitment_indices[i].to_bytes(8, "big")
+        data += cell_indices[i].to_bytes(8, "big")
+        data += cells_bytes[i]
+        data += proofs_bytes[i]
+    return hash_to_bls_field(hashlib.sha256(bytes(data)).digest())
+
+
+@lru_cache(maxsize=None)
+def _coset_shift_pows() -> Tuple[int, ...]:
+    """h_k^64 for every cell index k, h_k = w^CELL_INDICES_RBL[k] the
+    shift of cell k's coset (w the 8192nd root of unity)."""
+    w_cell = pow(root_of_unity(FIELD_ELEMENTS_PER_EXT_BLOB.bit_length() - 1), CELL, R)
+    return tuple(pow(w_cell, CELL_INDICES_RBL[k], R) for k in range(K2))
+
+
+def _cells_to_limbs(cells_bytes: Sequence[bytes], device) -> torch.Tensor:
+    """Cell bytes -> canonical limbs (16, count, 64) on `device`; raises if
+    a scalar is not canonical."""
+    raw = np.frombuffer(b"".join(cells_bytes), dtype=np.uint8).reshape(len(cells_bytes), CELL, 32)
+    limbs, ok = _bytes_to_limbs(torch.from_numpy(raw.copy()).to(device))
+    if not bool(ok.all()):
+        raise ValueError("Invalid cell: scalar not canonical")
+    return limbs
+
+
+def _agg_cells_core(cells_canon: torch.Tensor, r_limbs: torch.Tensor, cell_indices: torch.Tensor) -> torch.Tensor:
+    """Per-column r-weighted cell sums. cells_canon: (16, count, 64)
+    canonical limbs; r_limbs: (16, count, 1) canonical; cell_indices:
+    (count,) int64. Returns (16, 128, 64) Montgomery. The weighted cells
+    are summed into their columns limb by limb on int64 (index_add_), then
+    reduced mod r once."""
+    weighted = fl.mont_mul(FR, fl.from_canonical(FR, cells_canon), fl.from_canonical(FR, r_limbs))
+    L, count, _ = weighted.shape
+    slot = (cell_indices.reshape(count, 1) * CELL + torch.arange(CELL, device=weighted.device)).reshape(-1)
+    acc = torch.zeros((L, K2 * CELL), dtype=torch.int64, device=weighted.device)
+    acc.index_add_(1, slot, weighted.reshape(L, -1).to(torch.int64))
+    return fl.reduce_sums(FR, acc).reshape(L, K2, CELL)
+
+
+def _interp_poly_core(agg_m: torch.Tensor, inv_shift_pows: torch.Tensor) -> torch.Tensor:
+    """The aggregated interpolation polynomial (16, 64), Montgomery: per
+    column, the inverse FFT of 64 of its sums (wire order, so bit-reversed
+    first), the coset unshift by the column's powers of h^-1; then the sum
+    over the columns (unused ones are zero)."""
+    interp = ifft(bit_reverse(agg_m))  # (16, 128, 64)
+    shifted = fl.mont_mul(FR, interp, inv_shift_pows)
+    return fl.sum_tree(FR, shifted.transpose(1, 2))[..., 0]
+
+
+def _msm_auto(pts: dg1.G1Aff, sc: torch.Tensor) -> dg1.G1XYZZ:
+    """A variable-base MSM that takes the ladder below 8 points whatever
+    the batch (the JAX package's eip7594._msm_auto)."""
+    n = pts.x.shape[-1]
+    if n < 8:
+        return dg1.map_coords(lambda c: c[..., 0], dg1.msm_ladder(pts, sc))
+    return dmsm.msm_core(pts, sc, dmsm.default_window(n, fixed_base=False))
+
+
+def _verify_cell_inputs(unique_cb, commitment_indices, cell_indices, cells_bytes, proofs_bytes, r: int, device):
+    """The device side's inputs: the proofs twice (24, 2, count) with the
+    scalars (16, 2, count) of the proof lincomb (r^i) and of the weighted
+    proofs (r^i h_i^64); the unique commitments (24, nu) with their weights
+    (16, nu), each the sum of the powers r^i of its cells; the cells'
+    canonical limbs (16, count, 64); r^i (16, count, 1); the cell indices
+    (count,). Raises if a point does not decompress or a cell scalar is not
+    canonical."""
+    proofs = dg1.affine_from_ints(native.g1_decompress_batch(b"".join(proofs_bytes)), device)
+    commitments = dg1.affine_from_ints(native.g1_decompress_batch(b"".join(unique_cb)), device)
+    cells = _cells_to_limbs(cells_bytes, device)
+    r_powers = compute_powers(r, len(cell_indices))
+    h_pows = _coset_shift_pows()
+    weighted_r = [rp * h_pows[ci] % R for rp, ci in zip(r_powers, cell_indices)]
+    weights = [0] * commitments.x.shape[-1]
+    for i, ci in enumerate(commitment_indices):
+        weights[ci] = (weights[ci] + r_powers[i]) % R
+    r_limbs = fl.ints_to_limbs(r_powers, FR.n_limbs)
+    sc2 = np.stack([r_limbs, fl.ints_to_limbs(weighted_r, FR.n_limbs)], axis=1)
+    return (
+        dg1.repeat_batch(proofs, 2),
+        torch.from_numpy(sc2).to(device),
+        commitments,
+        torch.from_numpy(fl.ints_to_limbs(weights, FR.n_limbs)).to(device),
+        cells,
+        torch.from_numpy(r_limbs[:, :, None]).to(device),
+        torch.tensor(list(cell_indices), dtype=torch.int64, device=device),
+    )
+
+
+def _verify_cell_body(p2, sc2, commitments, weights, cells, r_limbs, cell_indices, s: TorchKZGSettings) -> dg1.G1Aff:
+    """The device side of verify_cell_kzg_proof_batch (the inputs of
+    _verify_cell_inputs): the batch-2 proof MSM, the commitment MSM and the
+    commitment to the aggregated interpolation polynomial. Returns the
+    affine points [proof_lincomb, weighted_proofs, commitment_sum,
+    interp_commit]."""
+    out2 = _msm_auto(p2, sc2)  # (24, 2)
+    fs = _msm_auto(commitments, weights)  # (24,)
+    agg_poly = _interp_poly_core(_agg_cells_core(cells, r_limbs, cell_indices), s.inv_coset_shift_pows)
+    interp = dmsm.msm_fixed(s.monomial64_table, fl.to_canonical(FR, agg_poly))  # (24,)
+    pts = dg1.G1XYZZ(*(torch.cat([a, b[:, None], c[:, None]], dim=-1) for a, b, c in zip(out2, fs, interp)))
+    return dg1.to_affine(pts)
+
+
+def verify_cell_kzg_proof_batch(
+    commitments_bytes: Sequence[bytes],
+    cell_indices: Sequence[int],
+    cells_bytes: Sequence[bytes],
+    proofs_bytes: Sequence[bytes],
+    s: TorchKZGSettings,
+) -> bool:
+    """Verify many cells against their commitments and proofs with one
+    pairing check:
+        e(sum_k w_k C_k - [I(s)] + sum_i r^i h_i^64 pi_i, H)
+            == e(sum_i r^i pi_i, [s^64]_2)
+    where w_k sums the powers r^i of the cells of commitment k, and I is
+    the r-weighted sum of the cells' interpolation polynomials."""
+    commitments_bytes, cell_indices = list(commitments_bytes), list(cell_indices)
+    cells_bytes, proofs_bytes = list(cells_bytes), list(proofs_bytes)
+    count = len(cells_bytes)
+    if len(cell_indices) != count:
+        raise ValueError("Cell count mismatch")
+    if len(commitments_bytes) != count:
+        raise ValueError("Commitment count mismatch")
+    if len(proofs_bytes) != count:
+        raise ValueError("Proof count mismatch")
+    if count == 0:
+        return True
+    if any(idx >= K2 for idx in cell_indices):
+        raise ValueError("Invalid cell index")
+    if any(len(p) != 48 for p in proofs_bytes) or any(len(c) != 48 for c in commitments_bytes):
+        raise ValueError("Invalid proof/commitment length")
+    unique_cb, commitment_indices = _deduplicate_with_indices(commitments_bytes)
+    for cb in cells_bytes:
+        if len(cb) != BYTES_PER_CELL:
+            raise ValueError("Invalid cell length")
+    r = _batch_challenge_bytes(unique_cb, commitment_indices, cell_indices, cells_bytes, proofs_bytes)
+    inputs = _verify_cell_inputs(unique_cb, commitment_indices, cell_indices, cells_bytes, proofs_bytes, r, s.device)
+    aff = _verify_cell_body(*inputs, s)
+    proof_lincomb, weighted_proofs, commitment_sum, interp = dg1.affine_to_ints(aff)
+    neg_interp = None if interp is None else (interp[0], (P_MOD - interp[1]) % P_MOD)
+    lhs = native.g1_add(native.g1_add(commitment_sum, neg_interp), weighted_proofs)
+    return native.pairings_verify(lhs, G2_GENERATOR, proof_lincomb, s.g2_monomial[CELL])
+
+
+def compute_verify_cell_kzg_proof_batch_challenge(
+    commitments_bytes: Sequence[bytes],
+    commitment_indices: Sequence[int],
+    cell_indices: Sequence[int],
+    cells_bytes: Sequence[bytes],
+    proofs_bytes: Sequence[bytes],
+) -> int:
+    """The challenge r of verify_cell_kzg_proof_batch, from deduplicated
+    commitments and each cell's commitment index. Inputs are validated:
+    commitments and proofs must decompress, cells must hold canonical
+    scalars."""
+    count = len(cells_bytes)
+    if len(commitment_indices) != count or len(cell_indices) != count or len(proofs_bytes) != count:
+        raise ValueError("Cell count mismatch")
+    if any(len(c) != 48 for c in commitments_bytes) or any(len(p) != 48 for p in proofs_bytes):
+        raise ValueError("Invalid commitment/proof length")
+    if commitments_bytes:
+        native.g1_decompress_batch(b"".join(commitments_bytes))
+    if proofs_bytes:
+        native.g1_decompress_batch(b"".join(proofs_bytes))
+    for cb in cells_bytes:
+        if len(cb) != BYTES_PER_CELL:
+            raise ValueError("Invalid cell length")
+        _, ok = bs.frs_from_bytes(cb)
+        if not ok.all():
+            raise ValueError("Invalid cell: scalar not canonical")
+    return _batch_challenge_bytes(
+        list(commitments_bytes), list(commitment_indices), list(cell_indices), list(cells_bytes), list(proofs_bytes)
+    )

@@ -1,10 +1,12 @@
-"""Wrappers of the MSM's two CUDA kernels, each beside its plain PyTorch
+"""Wrappers of the MSMs' three CUDA kernels, each beside its plain PyTorch
 version. The counterpart of the JAX package's ops/pallas_msm.py.
 
   seg_scan_phase1_mem  kernel B1 (csrc/msm_kernels.cu), replaces
                        pallas_msm.py:_phase1_packed_call
   add_points           kernel B2 (csrc/msm_kernels.cu), replaces
                        pallas_msm.py:_add_call
+  horner_windows       kernel B3 (csrc/msm_kernels.cu), replaces
+                       pallas_msm.py:_horner_call
 
 A wrapper runs its plain version (`*_ref`) for tensors on the CPU. For a
 CUDA tensor it launches the kernel, or raises: nothing falls back. Each
@@ -116,4 +118,48 @@ def add_points(p: g1.G1XYZZ, q: g1.G1XYZZ) -> g1.G1XYZZ:
     )
     add_points.launches += 1
     launch.check_launch(rc, "add_unified")
+    return g1.G1XYZZ(*out)
+
+
+# ---------------------------------------------------------------------------
+# B3: the variable-base MSM's window combination
+# ---------------------------------------------------------------------------
+
+
+def horner_windows_ref(win: g1.G1XYZZ, c: int) -> g1.G1XYZZ:
+    """Plain version of B3, the JAX package's loop form: acc = W_{w-1};
+    then for j = w-2 .. 0, acc = dbl^c(acc) + W_j."""
+    w = win.x.shape[-1]
+    acc = g1.map_coords(lambda t: t[..., w - 1], win)
+    for j in range(w - 2, -1, -1):
+        for _ in range(c):
+            acc = g1.dbl(acc)
+        acc = g1.add_unified_plain(acc, g1.map_coords(lambda t: t[..., j], win))
+    return acc
+
+
+@launch.counted("horner")
+def horner_windows(win: g1.G1XYZZ, c: int) -> g1.G1XYZZ:
+    """sum_j 2^(c j) W_j over the last axis. win: XYZZ window sums, each
+    coordinate a contiguous (24, nb, w) int32 tensor (nb independent
+    MSMs); c >= 1. Returns XYZZ (24, nb)."""
+    dev = win.x.device
+    if win.x.dim() != 3:
+        raise ValueError(f"wx: shape {tuple(win.x.shape)}, expected (24, nb, w)")
+    _, nb, w = win.x.shape
+    for name, t in zip(("wx", "wy", "wzz", "wzzz"), win):
+        launch.check(t, name, torch.int32, (L, nb, w), dev)
+    if w < 1 or c < 1:
+        raise ValueError(f"horner_windows: needs w >= 1 and c >= 1, got w={w}, c={c}")
+    if dev.type == "cpu":
+        return horner_windows_ref(win, c)
+    launch.require_cuda(dev)
+    out = [torch.empty((L, nb), dtype=fl.LIMB_DTYPE, device=dev) for _ in range(4)]
+    if nb == 0:
+        return g1.G1XYZZ(*out)
+    rc = launch.kernels().kzg_horner(
+        *(t.data_ptr() for t in win), *(o.data_ptr() for o in out), nb, w, c, launch.stream()
+    )
+    horner_windows.launches += 1
+    launch.check_launch(rc, "horner")
     return g1.G1XYZZ(*out)

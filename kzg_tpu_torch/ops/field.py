@@ -110,10 +110,14 @@ class FieldSpec:
         """Python ints -> Montgomery-form (L, B) limb tensor on `device`."""
         return torch.from_numpy(self.encode_host(vs)).to(device)
 
+    @cached_property
+    def r_inv(self) -> int:
+        """R^-1 mod m."""
+        return pow(1 << (LIMB_BITS * self.n_limbs), -1, self.modulus)
+
     def decode(self, a) -> List[int]:
         """Montgomery-form limbs -> python ints."""
-        rinv = pow(1 << (LIMB_BITS * self.n_limbs), -1, self.modulus)
-        return [v * rinv % self.modulus for v in limbs_to_ints(a)]
+        return [v * self.r_inv % self.modulus for v in limbs_to_ints(a)]
 
 
 FR = FieldSpec("Fr", R_MOD, FR_LIMBS, FR_R2, FR_N0_INV)
@@ -318,12 +322,50 @@ def _from_wide(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Narrow batches on the CPU: Python integers. A torch op costs microseconds
+# of dispatch whatever its width, and a Montgomery product is about a
+# hundred of them; up to _INT_MAX_LANES lanes on the CPU (an MSM ladder's
+# or window combination's handful) add, sub and mont_mul compute the same
+# fully reduced values with Python's integers, limb for limb what the
+# tensor code gives, some tens of times faster. On the card, and for wider
+# batches, the tensor code runs.
+# ---------------------------------------------------------------------------
+
+_INT_MAX_LANES = 32
+
+
+def _int_path(t: torch.Tensor, shape) -> bool:
+    return t.device.type == "cpu" and int(np.prod(shape[1:])) <= _INT_MAX_LANES
+
+
+def _to_pyints(a: torch.Tensor, shape) -> List[int]:
+    """(L, *batch) limbs, broadcast to `shape` -> one int per lane."""
+    L = shape[0]
+    raw = a.expand(shape).reshape(L, -1).numpy().T.astype("<u2").tobytes()
+    return [int.from_bytes(raw[2 * L * i : 2 * L * (i + 1)], "little") for i in range(len(raw) // (2 * L))]
+
+
+def _from_pyints(vals: List[int], shape) -> torch.Tensor:
+    L = shape[0]
+    raw = b"".join(v.to_bytes(2 * L, "little") for v in vals)
+    limbs = np.frombuffer(raw, dtype="<u2").reshape(len(vals), L).T.astype(np.int32)
+    return torch.from_numpy(limbs).reshape(shape)
+
+
+def _int_op(a, b, shape, fn) -> torch.Tensor:
+    return _from_pyints([fn(x, y) for x, y in zip(_to_pyints(a, shape), _to_pyints(b, shape))], shape)
+
+
+# ---------------------------------------------------------------------------
 # Public ops on (L, *batch) int32 limb tensors
 # ---------------------------------------------------------------------------
 
 
 def add(spec: FieldSpec, a, b) -> torch.Tensor:
     shape = _bshape(a, b)
+    if _int_path(a, shape):
+        m = spec.modulus
+        return _int_op(a, b, shape, lambda x, y: (x + y) % m)
     s, top = _normalize(_flat(a, shape) + _flat(b, shape), LIMB_BITS, 1)
     m = _limb_const(spec.name, "mod", _dev(s))
     return _cond_sub(s, m, LIMB_BITS, top).to(LIMB_DTYPE).reshape(shape)
@@ -331,6 +373,9 @@ def add(spec: FieldSpec, a, b) -> torch.Tensor:
 
 def sub(spec: FieldSpec, a, b) -> torch.Tensor:
     shape = _bshape(a, b)
+    if _int_path(a, shape):
+        m = spec.modulus
+        return _int_op(a, b, shape, lambda x, y: (x - y) % m)
     d, under = _sub_limbs(_flat(a, shape), _flat(b, shape), LIMB_BITS)
     m = _limb_const(spec.name, "mod", _dev(d))
     s, _ = _normalize(d + m * under, LIMB_BITS, 1)  # the carry out cancels the borrow
@@ -352,6 +397,9 @@ def mont_mul(spec: FieldSpec, a, b) -> torch.Tensor:
     integers (every column stays below 2^53) and the CPU has a native
     fused multiply-add; carries run on int64."""
     shape = _bshape(a, b)
+    if _int_path(a, shape):
+        m, rinv = spec.modulus, spec.r_inv
+        return _int_op(a, b, shape, lambda x, y: x * y * rinv % m)
     name = spec.name
     bits = _WIDE_BITS[name]
     f64 = torch.float64
@@ -452,6 +500,19 @@ def sum_tree(spec: FieldSpec, a) -> torch.Tensor:
         a = add(spec, a[..., :h], a[..., h:])
         m = h
     return a
+
+
+def reduce_sums(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
+    """Limb-wise sums of values below m, (L, N) int64 with every column
+    below 2^37 (up to 2^21 addends), -> their sum mod m as (L, N) limbs.
+    Montgomery form carries through a sum, so Montgomery addends give the
+    Montgomery form of their sum. The carried sum is lo + hi 2^(16 L) with
+    lo < R = 2^(16 L) and hi small: lo mod m is the Montgomery product of lo
+    with R mod m, and hi R mod m that of hi with R^2 mod m."""
+    lo, hi = _normalize(cols, LIMB_BITS, 3)
+    hi_limbs = torch.stack([(hi >> (LIMB_BITS * k)) & LIMB_MASK for k in range(spec.n_limbs)])
+    lo_m = mul_const(spec, lo.to(LIMB_DTYPE), spec.one_mont)
+    return add(spec, lo_m, from_canonical(spec, hi_limbs.to(LIMB_DTYPE)))
 
 
 def to_canonical(spec: FieldSpec, a) -> torch.Tensor:

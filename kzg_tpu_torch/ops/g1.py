@@ -167,6 +167,14 @@ def madd_unified(p: G1XYZZ, a: G1Aff) -> G1XYZZ:
     return select_point(inf1, from_affine(a), res)
 
 
+def repeat_batch(a: G1Aff, k: int) -> G1Aff:
+    """k copies of a point batch (24, n) along a new batch axis: (24, k, n),
+    the points of k MSMs over the same bases."""
+    return G1Aff(
+        torch.stack([a.x] * k, dim=1), torch.stack([a.y] * k, dim=1), torch.stack([a.inf] * k, dim=0)
+    )
+
+
 def to_affine(p: G1XYZZ) -> G1Aff:
     """Batch conversion to affine through one shared inversion."""
     inf = is_inf(p)
@@ -207,6 +215,25 @@ def suffix_scan_add(p: G1XYZZ) -> G1XYZZ:
         added = add_unified(p, rolled)
         p = select_point(idx <= n - 1 - s, added, p)  # lanes with a right partner
     return p
+
+
+def scalar_mul(a: G1Aff, scalar_limbs: torch.Tensor, nbits: int = 255) -> G1XYZZ:
+    """Per-lane scalar multiplication out[i] = scalar[i] * a[i], MSB-first
+    double and add: one dbl and one madd_unified with a select per bit.
+    scalar_limbs: (16, *batch) canonical Fr limbs."""
+    acc = infinity(a.x.shape[1:], a.x.device)
+    for i in range(nbits):
+        bit_idx = nbits - 1 - i
+        bit = (scalar_limbs[bit_idx // 16] >> (bit_idx % 16)) & 1
+        acc = dbl(acc)
+        acc = select_point(bit == 1, madd_unified(acc, a), acc)
+    return acc
+
+
+def msm_ladder(points: G1Aff, scalar_limbs: torch.Tensor) -> G1XYZZ:
+    """MSM for small n: the per-lane ladder, then a tree reduction along the
+    last axis. Returns (..., 1)."""
+    return tree_reduce(scalar_mul(points, scalar_limbs))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Fixed-base multi-scalar multiplication in PyTorch: Pippenger as one sort
-and one segmented scan. The counterpart of the JAX package's ops/msm.py,
-fixed-base path.
+"""Multi-scalar multiplication in PyTorch: Pippenger as one sort and one
+segmented scan. The counterpart of the JAX package's ops/msm.py, fixed-base
+(`msm_fixed`) and variable-base (`msm`) paths.
 
   1. Scalars -> signed window digits.
   2. Bucket sums: sort the (batch, bucket) keys with the point row as
@@ -10,8 +10,11 @@ fixed-base path.
      into each chunk's first segment end (complete additions, kernel B2 on
      the card). Bucket b's sum is read at its last sorted element.
   3. Bucket integration sum_b b * S_b by a square split of the bucket axis.
-  4. No window combination: the table holds 2^(c j) P_i for every window j
-     (BGMW), so all windows share one bucket space.
+  4. Window combination. Fixed base: none, the table holds 2^(c j) P_i for
+     every window j (BGMW), so all windows share one bucket space. Variable
+     base: every (batch, window) pair has its own buckets, and the window
+     sums combine high to low by c doublings and one addition each (kernel
+     B3 on the card).
 Leading batch dims of the scalars are independent MSMs folded into the
 sort key.
 """
@@ -333,3 +336,66 @@ def msm_fixed(table: FixedBaseTable, scalars: torch.Tensor) -> G1XYZZ:
     buckets = map_coords(lambda cc: cc.reshape(FP.n_limbs, nb, -1), sums)
     acc = map_coords(lambda cc: cc[..., 0], integrate_buckets(buckets))  # (24, nb)
     return map_coords(lambda cc: cc.reshape((FP.n_limbs,) + batch), acc)
+
+
+# ---------------------------------------------------------------------------
+# Variable-base MSM
+# ---------------------------------------------------------------------------
+
+
+def msm(points: G1Aff, scalars: torch.Tensor, c: Optional[int] = None) -> G1XYZZ:
+    """Variable-base MSM. points: affine (24, *batch, n); scalars: canonical
+    Fr limbs (16, *batch, n), on the points' device. Returns XYZZ sums of
+    batch shape (*batch,). Below 8 points with no batch axis it takes the
+    per-lane ladder, as the JAX package's msm does."""
+    n = points.x.shape[-1]
+    if n < 8 and points.x.dim() == 2:
+        return map_coords(lambda cc: cc[..., 0], g1.msm_ladder(points, scalars))
+    if c is None:
+        c = default_window(n, fixed_base=False)
+    return msm_core(points, scalars, c)
+
+
+def _var_inputs(points: G1Aff, scalars: torch.Tensor, c: int):
+    """Keys, packed rows and scan layout of a variable-base MSM: every
+    (batch b, window j) pair owns the buckets (b w + j)(half + 1) + |digit|,
+    and every element's row is its own point, b n + i, in the negated-y
+    half for a negative digit. Returns (rows_packed, layout, n_keys, nb,
+    w)."""
+    n = points.x.shape[-1]
+    if scalars.shape[0] != FR.n_limbs or tuple(scalars.shape[1:]) != tuple(points.x.shape[1:]):
+        raise ValueError(f"scalars: shape {tuple(scalars.shape)}, expected (16, {tuple(points.x.shape[1:])})")
+    dev = points.x.device
+    batch = tuple(points.x.shape[1:-1])
+    nb = int(np.prod(batch)) if batch else 1
+    w = num_windows(c)
+    half = 1 << (c - 1)
+
+    digits = signed_digits(scalars, c).reshape(w, nb, n)
+    seg = torch.arange(nb, device=dev).reshape(1, nb, 1) * w + torch.arange(w, device=dev).reshape(w, 1, 1)
+    keys = seg * (half + 1) + digits.abs()
+    E = w * nb * n
+
+    L = FP.n_limbs
+    rows_packed, R0 = _pack_point_rows(
+        points.x.reshape(L, nb, n), points.y.reshape(L, nb, n), points.inf.reshape(nb, n)
+    )
+    src_nat = torch.arange(nb * n, device=dev).reshape(1, nb, n)
+    aug = torch.where(digits < 0, src_nat + R0, src_nat).reshape(E)
+    return rows_packed, _scan_layout(keys.reshape(E), aug), nb * w * (half + 1), nb, w
+
+
+def window_sums(points: G1Aff, scalars: torch.Tensor, c: int) -> G1XYZZ:
+    """The window sums W_j of each MSM: the bucket sums of every (batch,
+    window) pair, integrated. Returns XYZZ (24, nb, w), the input of B3."""
+    rows_packed, lay, n_keys, nb, w = _var_inputs(points, scalars, c)
+    sums = _bucket_sums_mem(rows_packed, lay, n_keys)
+    buckets = map_coords(lambda cc: cc.reshape(FP.n_limbs, nb, w, -1), sums)
+    return map_coords(lambda cc: cc[..., 0].contiguous(), integrate_buckets(buckets))
+
+
+def msm_core(points: G1Aff, scalars: torch.Tensor, c: int) -> G1XYZZ:
+    """The variable-base MSM's bucket path at window c, whatever n: the
+    window sums, then their combination through the B3 wrapper."""
+    acc = cuda_msm.horner_windows(window_sums(points, scalars, c), c)  # (24, nb)
+    return map_coords(lambda cc: cc.reshape((FP.n_limbs,) + tuple(points.x.shape[1:-1])), acc)

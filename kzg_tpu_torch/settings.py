@@ -1,8 +1,9 @@
 """KZG settings on a torch device: the fixed-base MSM table of the
-bit-reversed Lagrange setup and the FK20 column points and tables (each
-built on the device, cached on disk) and the bit-reversed roots of unity in
-Montgomery form, beside the host-side setup points (G2 points for the
-pairing check).
+bit-reversed Lagrange setup, the FK20 column points and tables, and the
+table of the first 64 monomial setup points (each built on the device,
+cached on disk); the bit-reversed roots of unity and the cell verifier's
+inverse coset-shift powers in Montgomery form; beside the host-side setup
+points (G2 points for the pairing checks).
 
 Entry points run on the card unless the caller names another device: with
 no device given and no card present, `resolve_device` raises.
@@ -17,15 +18,24 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .constants import CELLS_PER_EXT_BLOB, FIELD_ELEMENTS_PER_BLOB
+from .constants import (
+    CELLS_PER_EXT_BLOB,
+    FIELD_ELEMENTS_PER_BLOB,
+    FIELD_ELEMENTS_PER_CELL,
+    FIELD_ELEMENTS_PER_EXT_BLOB,
+    R_MOD,
+    root_of_unity,
+)
 from .ops import g1 as dg1
 from .ops import g1fft
 from .ops import msm as dmsm
 from .ops.field import FR
-from .trusted_setup import TrustedSetup, brp_roots_of_unity, load_trusted_setup_file
+from .trusted_setup import TrustedSetup, brp_roots_of_unity, load_trusted_setup_file, reverse_bit_order
 
 _TABLE_FORMAT_VERSION = 1
 COLUMN_WINDOW = 8  # the FK20 column tables' window, as the JAX package's
+# cell index -> its coset's position in the bit-reversed extended domain
+CELL_INDICES_RBL = reverse_bit_order(list(range(CELLS_PER_EXT_BLOB)))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -166,6 +176,35 @@ class TorchKZGSettings:
     def roots_brp_mont(self) -> torch.Tensor:
         """Bit-reversed 4096 roots of unity, Montgomery form, (16, 4096)."""
         return FR.encode(brp_roots_of_unity(FIELD_ELEMENTS_PER_BLOB), self.device)
+
+    @cached_property
+    def inv_coset_shift_pows(self) -> torch.Tensor:
+        """The cell verifier's inverse coset-shift powers, Montgomery form
+        (16, 128, 64): column col holds h^-k for k < 64, h^-1 = w^(8192 -
+        CELL_INDICES_RBL[col]) with w the 8192nd root of unity (the JAX
+        package's eip7594._interp_consts)."""
+        n_ext = FIELD_ELEMENTS_PER_EXT_BLOB
+        w = root_of_unity(n_ext.bit_length() - 1)
+        vals = []
+        for col in range(CELLS_PER_EXT_BLOB):
+            inv_factor = pow(w, (n_ext - CELL_INDICES_RBL[col]) % n_ext, R_MOD)
+            acc = 1
+            for _ in range(FIELD_ELEMENTS_PER_CELL):
+                vals.append(acc)
+                acc = acc * inv_factor % R_MOD
+        shape = (FR.n_limbs, CELLS_PER_EXT_BLOB, FIELD_ELEMENTS_PER_CELL)
+        return torch.from_numpy(FR.encode_host(vals).reshape(shape)).to(self.device)
+
+    @cached_property
+    def monomial64_table(self) -> dmsm.FixedBaseTable:
+        """Fixed-base table over the first 64 monomial setup points, the
+        base of the cell verifier's interpolation commitment, at the window
+        of a table over the whole monomial setup (c = 13): its rows equal
+        the first 64 columns of that table, as the JAX package slices them
+        out of its monomial_table."""
+        g1m = self.setup.g1_monomial
+        c = dmsm.default_window(len(g1m), fixed_base=True)
+        return build_table_cached(g1m[:FIELD_ELEMENTS_PER_CELL], "monomial64", self.device, c=c)
 
     @property
     def g2_monomial(self) -> list:

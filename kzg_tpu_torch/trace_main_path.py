@@ -3,13 +3,16 @@
     python -m kzg_tpu_torch.trace_main_path
 
 Loads the mainnet setup on the card and its tables, runs one warm commit
-and prove of 64 seeded random blobs and one warm EIP-7594 cells-and-proofs
-call of 16 of them (as chip_smoke.py), then traces one more of each with
-torch.profiler (CPU and CUDA activities) and prints, per call: the wall
-time, the summed time of device kernels and its share of the wall time
-(the rest is the device idle), each hand-written kernel's time and
-launches, and the device kernels that take the most time. Exits non-zero
-without a card.
+and prove of 64 seeded random blobs, one warm EIP-7594 cells-and-proofs
+call of 16 of them, and one warm verification of each kind (all 2048 cells
+of the 16 blobs, the 64 blobs; as chip_smoke.py), then traces one more of
+each, and a verification of 8 columns of the 16 blobs, with torch.profiler (CPU and CUDA activities) and prints, per call:
+the wall time, the summed time of device kernels and its share of the
+wall time (the rest is the device idle), the peak device memory, each
+hand-written kernel's time and launches, and the device kernels that take
+the most time. Then it runs each verification once more under cProfile
+and prints the package's host functions that take the most time. Exits
+non-zero without a card.
 """
 
 import os
@@ -23,9 +26,10 @@ from . import api
 from .ops import launch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_OURS = ("seg_scan_phase1_kernel", "add_unified_kernel", "ntt_tile_kernel", "ntt_stage_kernel")
+_OURS = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel", "ntt_tile_kernel", "ntt_stage_kernel")
 N_BLOBS = 64
 N_CELL_BLOBS = 16
+N_SAMPLE_COLUMNS = 8  # a sampling node's columns, as chip_smoke.py
 SEED = 4844
 
 
@@ -43,6 +47,7 @@ def _trace(label: str, fn) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -63,7 +68,8 @@ def _trace(label: str, fn) -> None:
     ours_us = sum(t for _, t in ours.values())
     print(f"{label}: wall {wall * 1e3:.1f} ms; device kernels {len(events)} launches, "
           f"{busy_us / 1e3:.1f} ms busy ({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall, "
-          f"idle {100 - 100 * busy_us / 1e3 / (wall * 1e3):.1f}%); hand-written kernels {ours_us / 1e3:.2f} ms")
+          f"idle {100 - 100 * busy_us / 1e3 / (wall * 1e3):.1f}%); hand-written kernels {ours_us / 1e3:.2f} ms; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for k, (n, t) in ours.items():
         if n:
             print(f"  hand-written {k}: {n} launches, {t / 1e3:.3f} ms")
@@ -71,6 +77,28 @@ def _trace(label: str, fn) -> None:
         print(f"{label}: the profiler recorded no device time (not measured)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {t / 1e3:9.2f} ms {n:7d} x  {name[:90]}")
+
+
+def _host_profile(label: str, fn) -> None:
+    """Wall time of fn under cProfile, and the package's functions that
+    take the most of it (cumulative: a function's time includes its
+    callees')."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = [(ct, f"{os.path.basename(f)}:{line} {name}", nc)
+            for (f, line, name), (_, nc, _, ct, _) in pstats.Stats(prof).stats.items() if "kzg_tpu_torch" in f]
+    print(f"{label} under cProfile: wall {wall * 1e3:.1f} ms; host functions by cumulative time:")
+    for ct, where, nc in sorted(rows, reverse=True)[:14]:
+        print(f"  {ct * 1e3:9.1f} ms {nc:7d} x  {where}")
 
 
 def main() -> int:
@@ -89,8 +117,17 @@ def main() -> int:
     s.column_tables
     blobs = _blobs(N_BLOBS, SEED)
     commits = api.blob_to_kzg_commitment_batch(blobs, s)  # warm
-    api.compute_blob_kzg_proof_batch(blobs, commits, s)
-    api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s)
+    blob_proofs = api.compute_blob_kzg_proof_batch(blobs, commits, s)
+    cells, proofs = api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s)
+    cell_args = (
+        [commits[b] for b in range(N_CELL_BLOBS) for _ in range(128)],
+        [j for _ in range(N_CELL_BLOBS) for j in range(128)],
+        [c for row in cells for c in row],
+        [p for row in proofs for p in row],
+    )
+    if not (api.verify_cell_kzg_proof_batch(*cell_args, s) and api.verify_blob_kzg_proof_batch(blobs, commits, blob_proofs, s)):
+        print("trace_main_path: a verification of valid inputs returned False", file=sys.stderr)
+        return 1
     launch.reset_launches()
     _trace(f"commit {N_BLOBS} blobs", lambda: api.blob_to_kzg_commitment_batch(blobs, s))
     _trace(f"prove {N_BLOBS} blobs", lambda: api.compute_blob_kzg_proof_batch(blobs, commits, s))
@@ -98,7 +135,14 @@ def main() -> int:
         f"cells and proofs of {N_CELL_BLOBS} blobs",
         lambda: api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s),
     )
+    sampled = [b * 128 + j for b in range(N_CELL_BLOBS) for j in range(0, 128, 128 // N_SAMPLE_COLUMNS)]
+    sample_args = tuple([v[i] for i in sampled] for v in cell_args)
+    _trace(f"verify {len(cell_args[0])} cells", lambda: api.verify_cell_kzg_proof_batch(*cell_args, s))
+    _trace(f"verify {len(sampled)} cells", lambda: api.verify_cell_kzg_proof_batch(*sample_args, s))
+    _trace(f"verify {N_BLOBS} blobs", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, blob_proofs, s))
     print(f"wrapper launches in the traced calls: {launch.launches()}")
+    _host_profile(f"verify {len(cell_args[0])} cells", lambda: api.verify_cell_kzg_proof_batch(*cell_args, s))
+    _host_profile(f"verify {N_BLOBS} blobs", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, blob_proofs, s))
     return 0
 
 

@@ -126,6 +126,23 @@ def test_proofs_match_jax_and_verify(port, commitments, reference):
     assert not te._check_proof_single(port, c_pt, p_pt, z, y + 1)
 
 
+def test_compute_kzg_proof_matches_jax(port, commitments, reference):
+    """compute_kzg_proof at a random z and at a root of unity (z in the
+    domain: y is the blob's own value there): the proof and y byte for
+    byte as the JAX package's, and the opening verifies."""
+    in_domain = trusted_setup.brp_roots_of_unity()[5]
+    for z in (987654321987654321 % FR_MOD, in_domain):
+        z_bytes = z.to_bytes(32, "big")
+        got = api.compute_kzg_proof(BLOBS[1], z_bytes, port)
+        assert got == je.compute_kzg_proof(BLOBS[1], z_bytes, reference)
+        assert api.verify_kzg_proof(commitments[1], z_bytes, got[1], got[0], port)
+    assert got[1] == BLOBS[1][32 * 5 : 32 * 6]
+    with pytest.raises(ValueError, match="Invalid scalar: not canonical"):
+        api.compute_kzg_proof(BLOBS[1], FR_MOD.to_bytes(32, "big"), port)
+    with pytest.raises(ValueError, match="Invalid field element length"):
+        api.compute_kzg_proof(BLOBS[1], bytes(31), port)
+
+
 def test_setup_lagrange_order_and_roots(port):
     roots = trusted_setup.brp_roots_of_unity()
     assert FP.n_limbs == 24 and len(roots) == 4096

@@ -3,9 +3,10 @@ python ints, on the CPU. Tolerance: exact (integer field arithmetic; the
 two packages share the limb layout and the Montgomery radix, so fully
 reduced results are equal limb for limb).
 
-Each op runs at two batch widths, so that both carry forms of the torch
-code (the lookahead form for narrow batches, the limb chain for wide ones)
-are held against the same references."""
+Each op runs at three batch widths, so that the Python-integer path of
+narrow CPU batches and both carry forms of the tensor code (the lookahead
+form for narrow batches, the limb chain for wide ones) are held against
+the same references."""
 
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ from kzg_tpu_torch.ops import field as tf
 torch.set_num_threads(1)  # one core per test worker: the suite runs several at once
 
 SPECS = {"Fr": (tf.FR, jf.FR), "Fp": (tf.FP, jf.FP)}
-WIDTHS = (64, 600)  # below and above the chain threshold
+WIDTHS = (8, 64, 600)  # the integer path; below and above the chain threshold
 
 
 def _ints(rng, m, n):
@@ -163,3 +164,24 @@ def test_select_and_eq():
     assert tf.eq(tf.FP, a, b).tolist() == [False, True, False]
     mask = torch.tensor([True, False, True])
     assert tf.FP.decode(tf.select(mask, a, b)) == [1, 2, 3]
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_narrow_batches_match_the_tensor_code(name, monkeypatch):
+    """Up to _INT_MAX_LANES lanes on the CPU, add, sub and mont_mul run on
+    Python integers; with that path off, the tensor code (the card's) gives
+    the same limbs at the same narrow width, from_canonical's inputs at or
+    above m included."""
+    spec, _ = SPECS[name]
+    m, R = spec.modulus, 1 << (16 * spec.n_limbs)
+    _, _, a, b = _inputs(name, 8, 9)
+    big = tf.ints_to_limbs([m, R - 1, m + 12345], spec.n_limbs)
+    ta, tb, tbig = (torch.from_numpy(x) for x in (a, b, big))
+    assert a.shape[1] <= tf._INT_MAX_LANES
+    runs = []
+    for limit in (tf._INT_MAX_LANES, 0):
+        monkeypatch.setattr(tf, "_INT_MAX_LANES", limit)
+        runs.append([tf.add(spec, ta, tb), tf.sub(spec, ta, tb), tf.mont_mul(spec, ta, tb),
+                     tf.from_canonical(spec, tbig), tf.mont_mul(spec, ta[:, :1], tb)])
+    for x, y in zip(*runs):
+        assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y)

@@ -77,7 +77,7 @@ def test_add_points_checks_inputs_and_has_no_fallback():
     meta = g1.map_coords(lambda c: c.to("meta"), p)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_msm.add_points(meta, meta)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "ntt_tile": 0, "ntt_stage": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0}
 
 
 def _fr_values(B, n, seed=1):
@@ -102,7 +102,7 @@ def test_ntt_wrappers_check_inputs_and_have_no_fallback():
         cuda_fft.ntt_tile(x.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_fft.ntt_stage(x.to("meta"), 1)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "ntt_tile": 0, "ntt_stage": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0}
 
 
 def test_every_launcher_has_a_signature():
@@ -252,3 +252,48 @@ def test_msm_on_the_card_matches_the_cpu(cuda_device):
     table_d = msm.FixedBaseTable(*(t.to(cuda_device) for t in table[:3]), table.c)
     got = g1.xyzz_to_ints(msm.msm_fixed(table_d, sc.to(cuda_device)))
     assert got == g1.xyzz_to_ints(msm.msm_fixed(table, sc))
+
+
+def _horner_windows(device, nb, w, c):
+    """XYZZ windows (24, nb, w): doubled points (zz not one), with lane 0
+    all identity, lane 1 the identity at the start, lane 2 with W_{w-2} =
+    2^c W_{w-1} (P == Q at the first addition), lane 3 with its negative
+    (P == -Q)."""
+    pts = _points(nb * w)
+    win = g1.dbl(g1.from_affine(g1.affine_from_ints(pts, device)))
+    win = g1.map_coords(lambda t: t.reshape(24, nb, w).contiguous(), win)
+    lead = g1.map_coords(lambda t: t[:, 2:4, w - 1], win)
+    for _ in range(c):
+        lead = g1.dbl(lead)
+    for k in range(4):
+        win[k][:, 2, w - 2] = lead[k][:, 0]
+        win[k][:, 3, w - 2] = g1.neg(lead)[k][:, 1]
+    for t in (win.zz, win.zzz):
+        t[:, 0] = 0
+        t[:, 1, w - 1] = 0
+    return win
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb, w, c", [(2, 20, 13), (4, 20, 13), (300, 6, 3)])
+def test_horner_kernel_matches_plain(cuda_device, nb, w, c):
+    win = g1.map_coords(lambda t: t[:, :nb].contiguous(), _horner_windows(cuda_device, max(nb, 4), w, c))
+    got = cuda_msm.horner_windows(win, c)
+    ref = cuda_msm.horner_windows_ref(g1.map_coords(lambda t: t.cpu(), win), c)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_variable_base_msm_on_the_card_matches_the_cpu(cuda_device):
+    aff = g1.affine_from_ints(_points(40) + [None], "cpu")
+    rng = np.random.default_rng(9)
+    sc = torch.from_numpy(
+        np.stack([ints_to_limbs([int.from_bytes(rng.bytes(31), "big") for _ in range(41)], 16) for _ in range(2)], 1)
+    )
+    aff2 = g1.repeat_batch(aff, 2)
+    on_card = g1.G1Aff(*(t.to(cuda_device) for t in aff2))
+    launch.reset_launches()
+    got = g1.xyzz_to_ints(msm.msm(on_card, sc.to(cuda_device)))
+    assert launch.launches()["horner"] == 1
+    assert got == g1.xyzz_to_ints(msm.msm(aff2, sc))
