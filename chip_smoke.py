@@ -20,12 +20,20 @@ Phases (any failure exits non-zero, and the result line is not printed):
      and verify_blob_kzg_proof_batch on the 64 blobs: True; False with a
      cell changed, two proofs swapped, a proof of another blob; a
      non-canonical blob raises;
+     the bench path: the headline bench (kzg_tpu_torch.bench) at batch 8
+     and 3 iterations with its native check, one batch-8 stage split of
+     the fixed-base MSM (kzg_tpu_torch.benches.msm_stages, with kernel
+     B6's gather) and the gather probe's B6 call;
   3. each kernel against its plain PyTorch version, limb for limb, at the
      main paths' shapes (kernel on the card, plain version on a CPU copy
      or on the card) and on edge cases (B1, B2, B3: identity operands,
      P == Q, P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B2
      also on the FK20 half convolution's 133,120 lanes; B3 at the verify
      paths' shapes (1 and 2 MSMs, c = 13, 20 windows) and at 1024 lanes;
+     B6 word for word at the probe's shape, at the MSM's (batch 8, 25-word
+     rows) and on edge cases (first and last rows, repeated indices, a
+     ragged count, widths 24 and 25, an unaligned table), and an index out
+     of range raises;
   4. checks of the results: known answers from the setup file's own bytes
      (unit blobs commit to Lagrange points; blobs of x^(64 + k) have known
      cells and known proofs), a commitment and a proof against the CPU path
@@ -34,8 +42,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      2048-cell verification's four device points and the blob
      verification's two lincombs against the plain versions on a CPU copy;
   5. timings (CUDA events) of each kernel and its plain version, with the
-     least time the card could take; kernels shorter than their wrapper's
-     host overhead are timed with their launches queued ahead.
+     least time the card could take (and, for B6, the library call
+     index_select); kernels shorter than their wrapper's host overhead are
+     timed with their launches queued ahead.
 
 The last lines are the card line, a JSON line of kernel numbers, and
 {"ok": true, "device": {...}}.
@@ -57,6 +66,7 @@ MULADDS_PER_FMUL = 12 * (4 * 12 + 1)  # Fp CIOS: 12 rows of 4 twelve-word chains
 MULADDS_PER_RMUL = 8 * (4 * 8 + 1)  # Fr CIOS: 8 rows of 4 eight-word chains + m
 FMULS = {"seg_scan_phase1": 17, "add_unified": 23}
 N_SAMPLE_COLUMNS = 8  # a sampling node's columns (PeerDAS custody of 8 of 128)
+BENCH_BATCH, BENCH_ITERS = 8, 3  # the headline bench's batch, cut to 3 iterations
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
 
@@ -86,26 +96,6 @@ def timed(fn):
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0
-
-
-def cuda_ms(torch, fn, reps: int, queue_ahead: bool = False) -> float:
-    """Mean time of fn on the card over `reps` runs, after one warm run.
-    With `queue_ahead`, the stream first spins for about 5 ms so that the
-    host queues all `reps` launches before the first one starts: a kernel
-    shorter than the wrapper's host overhead (tens of microseconds) is
-    then timed back to back, not at the host's launch rate."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queue_ahead:
-        torch.cuda._sleep(10_000_000)  # GPU clock cycles
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def build_all():
@@ -206,9 +196,11 @@ def main() -> int:
     sys.path.insert(0, repo)
     import numpy as np
 
-    from kzg_tpu_torch import api, eip4844, eip7594, native, trusted_setup
+    from kzg_tpu_torch import api, bench, eip4844, eip7594, native, trusted_setup
+    from kzg_tpu_torch.benches import gather_micro, msm_stages
+    from kzg_tpu_torch.benches.common import device_ms as cuda_ms
     from kzg_tpu_torch.constants import P_MOD, R_MOD as R
-    from kzg_tpu_torch.ops import cuda_fft, cuda_msm, field as fl, g1, g1fft, launch, msm
+    from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, field as fl, g1, g1fft, launch, msm
     from kzg_tpu_torch.ops.field import FR
     from kzg_tpu_torch.settings import TorchKZGSettings
 
@@ -355,6 +347,28 @@ def main() -> int:
     except ValueError as e:
         check("not canonical" in str(e), f"a non-canonical blob raised {e!r}")
     log(f"blob verification: {N_BLOBS} blobs True; a proof of another blob False; a non-canonical blob raises")
+
+    # the bench path: the headline bench with its native check, one batch-8
+    # stage split of the fixed-base MSM (B6 gathers its sorted rows), and
+    # the gather probe's B6 call
+    headline, counts, _ = counted_call(
+        f"headline bench (batch {BENCH_BATCH}, {BENCH_ITERS} iterations, native check)",
+        lambda: bench.measure(table, s.setup.g1_lagrange_brp, BENCH_BATCH, BENCH_ITERS),
+    )
+    for name in ("seg_scan_phase1", "add_unified"):
+        check(counts[name] > 0, f"the headline bench did not launch {name}")
+    log(json.dumps(bench.result_line(headline["pts_per_s"])) + f" [{card}]")
+    stage_in = bench.make_inputs(4096, BENCH_BATCH, 1, dev, seed=SEED + 3)
+    split, counts, _ = counted_call(f"stage split (batch {BENCH_BATCH})", lambda: msm_stages.stage_split(table, stage_in))
+    # one launch each in the timed pass and the synchronized pass, and B1
+    # once more in the whole msm_fixed call timed beside them
+    check(counts["gather_rows"] == 2 and counts["seg_scan_phase1"] == 3, f"the stage split launched {counts}")
+    check(g1.xyzz_to_ints(split["result"]) == g1.xyzz_to_ints(msm.msm_fixed(table, stage_in[0])),
+          "the stage split's result differs from msm_fixed's")
+    msm_stages.report(BENCH_BATCH, split, card)
+    probe = gather_micro.make_probe(dev)
+    probe_out, counts, _ = counted_call("gather probe B6 call", lambda: gather_micro.dg(probe))
+    check(counts["gather_rows"] == 1, f"the gather probe launched {counts}")
 
     # ---- 3. kernels against their plain versions -------------------------
     max_err = {name: 0 for name in launch.WRAPPERS}
@@ -532,6 +546,34 @@ def main() -> int:
     compare("horner", got, cuda_msm.horner_windows_ref(wide, 13))
     log("B3 1024 lanes (c = 13, 20 windows, with identity, P == Q and P == -Q lanes): exact against the plain version on the card")
 
+    # B6 word for word against index_select: the probe's shape, the MSM's
+    # (batch 8: the sorted rows B1 reads), and edge cases
+    def compare_rows(label, table_t, idx_t):
+        got = cuda_gather.gather_rows(table_t, idx_t)
+        compare("gather_rows", [got], [cuda_gather.gather_rows_ref(table_t, idx_t)])
+        log(f"B6 {label} ({idx_t.numel()} rows of {table_t.shape[1]} words): exact")
+
+    compare("gather_rows", [probe_out], [cuda_gather.gather_rows_ref(probe["slice"], probe["src_mod"])])
+    log(f"B6 probe shape ({probe['src_mod'].numel()} rows of 24 words from a {gather_micro.N}-row slice): exact")
+    msm_in = gather_micro.msm_probe(table, BENCH_BATCH)
+    compare_rows(f"MSM shape, batch {BENCH_BATCH}", msm_in["rows"], msm_in["idx"])
+    gen = np.random.default_rng(SEED + 4)
+    for width in (24, 25):
+        tab_e = torch.from_numpy(gen.integers(-2**31, 2**31, (1000, width), dtype=np.int64).astype(np.int32)).to(dev)
+        edge = np.concatenate([[0, 999, 999, 0, 5, 5, 5], gen.integers(0, 1000, 993)]).astype(np.int32)
+        compare_rows(f"edge rows, width {width}", tab_e, torch.from_numpy(edge).to(dev))
+        compare_rows(f"one row, width {width}", tab_e, torch.from_numpy(edge[1:2]).to(dev))
+        unaligned = torch.empty(1000 * width + 1, dtype=torch.int32, device=dev)[1:].view(1000, width)
+        unaligned.copy_(tab_e)
+        compare_rows(f"unaligned table, width {width}", unaligned, torch.from_numpy(edge[:777]).to(dev))
+        for bad in (1000, -1):
+            try:
+                cuda_gather.gather_rows(tab_e, torch.tensor([3, bad, 4], dtype=torch.int32, device=dev))
+                raise SmokeFailure(f"B6: index {bad} of a 1000-row table did not raise")
+            except IndexError:
+                pass
+    log("B6: indices 1000 and -1 of a 1000-row table raise IndexError")
+
     # ---- 4. checks of the result -----------------------------------------
     with open(setup_path) as f:
         tokens = f.read().split()
@@ -642,9 +684,9 @@ def main() -> int:
 
     # ---- 5. timings --------------------------------------------------------
     p_main, q_main = agg_r, agg
-    t_b1 = cuda_ms(torch, lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64), 20)
-    t_b2 = cuda_ms(torch, lambda: cuda_msm.add_points(p_main, q_main), 50, queue_ahead=True)
-    t_b2_plain = cuda_ms(torch, lambda: cuda_msm.add_points_ref(p_main, q_main), 3)
+    t_b1 = cuda_ms(lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64), 20)
+    t_b2 = cuda_ms(lambda: cuda_msm.add_points(p_main, q_main), 50, queue_ahead=True)
+    t_b2_plain = cuda_ms(lambda: cuda_msm.add_points_ref(p_main, q_main), 3)
     E64 = N_BLOBS * 20 * 4096  # elements the data needs (the rest is padding)
     b1_ops = E64 * FMULS["seg_scan_phase1"] * MULADDS_PER_FMUL
     b1_bytes = rows64.numel() * 4 + idx64.numel() * 4 + first64.numel() + 4 * 24 * 4 * idx64.numel()
@@ -661,8 +703,8 @@ def main() -> int:
                 for k in ("ntt_tile", "ntt_stage")}
 
     def fft_timing(name, label, run, run_plain, products, B, n):
-        ms = cuda_ms(torch, run, 20, queue_ahead=True)
-        plain = cuda_ms(torch, run_plain, 3)
+        ms = cuda_ms(run, 20, queue_ahead=True)
+        plain = cuda_ms(run_plain, 3)
         t_ops, t_bytes = fft_times_ms(B, n, products, peak_imad)
         t_bytes32 = fft_times_ms(B, n, products, peak_imad, FR_BYTES)[1]
         row = fft_rows[name]
@@ -695,8 +737,8 @@ def main() -> int:
     b3 = {}
     for label, win, c_w in (("proof MSM", win2, c_v), ("commitment MSM", win_c, c_c)):
         nb_w, w_w = win.x.shape[1:]
-        ms = cuda_ms(torch, lambda: cuda_msm.horner_windows(win, c_w), 20)
-        plain = cuda_ms(torch, lambda: cuda_msm.horner_windows_ref(win, c_w), 2)
+        ms = cuda_ms(lambda: cuda_msm.horner_windows(win, c_w), 20)
+        plain = cuda_ms(lambda: cuda_msm.horner_windows_ref(win, c_w), 2)
         prods = (w_w - 1) * (9 * c_w + 23)
         t_ops = nb_w * prods * MULADDS_PER_FMUL / peak_imad * 1e3
         t_bytes = 4 * 24 * 4 * nb_w * (w_w + 1) / HBM_BYTES_PER_S * 1e3  # w windows in, one point out
@@ -707,6 +749,24 @@ def main() -> int:
             f"operations {t_ops:.5f}, bytes {t_bytes:.6f}); latency bound {t_lat:.4f} ms "
             f"({prods} dependent products, {prods * MULADDS_PER_FMUL} multiply-adds at {sm_clock_mhz:.0f} MHz) [{card}]")
     t_b3, t_b3_plain, b3_ops, b3_bytes, _ = b3["proof MSM"]
+
+    # B6 at the probe's shape (the row of the kernels line) and at the
+    # MSM's; the plain version is the library call, index_select, timed
+    # twice (as "plain" and as "library"); launches queued ahead, sharing
+    # one out-of-range flag read after the timing
+    flag = cuda_gather.new_flag(dev)
+    b6 = {}
+    for label, tab_b, idx_b in (("probe", probe["slice"], probe["src_mod"]), ("MSM", msm_in["rows"], msm_in["idx"])):
+        ms = cuda_ms(lambda: cuda_gather.gather_rows(tab_b, idx_b, flag), 20, queue_ahead=True)
+        plain = cuda_ms(lambda: cuda_gather.gather_rows_ref(tab_b, idx_b), 20, queue_ahead=True)
+        library = cuda_ms(lambda: tab_b.index_select(0, idx_b), 20, queue_ahead=True)
+        bound = gather_micro.bound_ms(tab_b.shape[1], idx_b)
+        b6[label] = (ms, plain, library, bound)
+        log(f"gather_rows {label} shape ({idx_b.numel()} rows of {tab_b.shape[1]} words from {tab_b.shape[0]}): "
+            f"{ms:.4f} ms (plain {plain:.4f} ms, index_select {library:.4f} ms, bound {bound:.4f} ms, bytes; "
+            f"{bound / ms:.0%} of the bound) [{card}]")
+    cuda_gather.raise_if_flagged(flag)
+    t_b6, t_b6_plain, t_b6_lib, b6_bound = b6["probe"]
 
     rows_out = []
     for name, ms, plain_ms, bound, by, source, replaces in (
@@ -722,6 +782,9 @@ def main() -> int:
         (name, r["ms"], r["plain"], r["bound"], "operations" if r["ops"] >= r["bytes"] else "bytes",
          "kzg_tpu_torch/csrc/fft_kernels.cu", replaces)
         for (name, r), replaces in zip(fft_rows.items(), ("kzg_tpu/ops/pallas_fft.py:179", "kzg_tpu/ops/pallas_fft.py:255"))
+    ) + (
+        ("gather_rows", t_b6, t_b6_plain, b6_bound, "bytes", "kzg_tpu_torch/csrc/gather_kernels.cu",
+         "benches/gather_micro.py:182"),
     ):
         rows_out.append({
             "name": name,
@@ -734,7 +797,7 @@ def main() -> int:
             "plain_ms": round(plain_ms, 4),
             "bound_ms": round(bound, 4),
             "bound_by": by,
-            "library_ms": None,
+            "library_ms": round(t_b6_lib, 4) if name == "gather_rows" else None,
         })
         log(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound:.4f} ms, {by}) [{card}]")
     for name, r in fft_rows.items():
@@ -743,7 +806,7 @@ def main() -> int:
             f"the kernel at {r['bound'] / r['ms']:.0%} of its bound, "
             f"{r['bound32'] / r['ms']:.0%} of the bound at 32 B/value [{card}]")
     log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {M2} lanes; B3 at the 2048-cell proof MSM's launch; "
-        f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches")
+        f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape")
     for label, secs in verify_walls.items():
         log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "
             f"launches {verify_launches[label]} [{card}]")

@@ -3,8 +3,10 @@
 EIP-4844 blob commitments, proofs and their verification, and EIP-7594
 cells, FK20 cell proofs and batch verification of cell proofs, with the
 MSMs' bucket scan, complete point addition and window combination and the
-Fr NTT's stages in hand-written CUDA kernels (csrc/). Imports torch and
-numpy, and nothing of JAX or of the kzg_tpu package.
+Fr NTT's stages in hand-written CUDA kernels (csrc/); and the benches
+(bench.py, benches/), with the gather probe's row gather in a kernel of
+its own. Imports torch and numpy, and nothing of JAX or of the kzg_tpu
+package.
 """
 
 from .api import (

@@ -26,7 +26,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("msm_kernels.cu", "fft_kernels.cu")
+SOURCES = ("msm_kernels.cu", "fft_kernels.cu", "gather_kernels.cu")
 HEADERS = ("field.cuh", "g1.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +41,7 @@ SIGNATURES = {
     "kzg_horner": ([_p] * 8 + [_i, _i, _i, _p], "msm_kernels.cu"),
     "kzg_ntt_tile": ([_p] * 4 + [_i, _ll, _p], "fft_kernels.cu"),
     "kzg_ntt_stage": ([_p] * 3 + [_i, _i, _ll, _p], "fft_kernels.cu"),
+    "kzg_gather_rows": ([_p] * 4 + [_ll, _ll, _i, _p], "gather_kernels.cu"),
 }
 
 _lock = threading.Lock()

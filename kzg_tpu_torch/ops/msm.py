@@ -157,10 +157,15 @@ def _scan_layout(flat_keys: torch.Tensor, aug_src: torch.Tensor) -> ScanLayout:
     into m chunk lanes of K elements. Element (t, lane) sits at column
     t * m + lane; its sorted rank is lane * K + t, so each lane scans a
     consecutive run of ranks."""
-    dev = flat_keys.device
-    E = flat_keys.shape[0]
     sorted_keys, order = torch.sort(flat_keys, stable=True)
-    src_sorted = aug_src[order]
+    return _chunk_layout(sorted_keys, aug_src[order])
+
+
+def _chunk_layout(sorted_keys: torch.Tensor, src_sorted: torch.Tensor) -> ScanLayout:
+    """The chunked layout of _scan_layout from the sorted keys and the row
+    index in sorted order."""
+    dev = sorted_keys.device
+    E = sorted_keys.shape[0]
     diff = sorted_keys[1:] != sorted_keys[:-1]
     one = torch.ones(1, dtype=torch.bool, device=dev)
     first = torch.cat([one, diff])
@@ -285,9 +290,9 @@ def build_fixed_base_table(points: G1Aff, c: Optional[int] = None) -> FixedBaseT
     return FixedBaseTable(aff.x, aff.y, aff.inf, c)
 
 
-def _fixed_inputs(table: FixedBaseTable, scalars: torch.Tensor):
-    """Keys, packed rows and scan layout of a fixed-base MSM: the inputs of
-    phase 1. Returns (rows_packed, layout, n_keys, nb, batch)."""
+def _fixed_keys(table: FixedBaseTable, scalars: torch.Tensor):
+    """Digits, sort keys, packed rows and source rows of a fixed-base MSM.
+    Returns (keys (E,), source rows (E,), rows_packed, n_keys, nb, batch)."""
     c = table.c
     w = num_windows(c)
     half = 1 << (c - 1)
@@ -316,7 +321,22 @@ def _fixed_inputs(table: FixedBaseTable, scalars: torch.Tensor):
         + (torch.arange(nb, device=dev) % Tb).reshape(1, nb, 1)
     ) * n + torch.arange(n, device=dev).reshape(1, 1, n)
     aug = torch.where(sign, src_nat + R0, src_nat).reshape(E)
-    return rows_packed, _scan_layout(keys.reshape(E), aug), nb * (half + 1), nb, batch
+    return keys.reshape(E), aug, rows_packed, nb * (half + 1), nb, batch
+
+
+def _fixed_inputs(table: FixedBaseTable, scalars: torch.Tensor):
+    """Keys, packed rows and scan layout of a fixed-base MSM: the inputs of
+    phase 1. Returns (rows_packed, layout, n_keys, nb, batch)."""
+    keys, aug, rows_packed, n_keys, nb, batch = _fixed_keys(table, scalars)
+    return rows_packed, _scan_layout(keys, aug), n_keys, nb, batch
+
+
+def _fixed_result(sums: G1XYZZ, nb: int, batch: tuple) -> G1XYZZ:
+    """Bucket integration of a fixed-base MSM's (24, nb (half + 1)) bucket
+    sums: XYZZ sums of batch shape (*batch,)."""
+    buckets = map_coords(lambda cc: cc.reshape(FP.n_limbs, nb, -1), sums)
+    acc = map_coords(lambda cc: cc[..., 0], integrate_buckets(buckets))  # (24, nb)
+    return map_coords(lambda cc: cc.reshape((FP.n_limbs,) + batch), acc)
 
 
 def phase1_inputs(table: FixedBaseTable, scalars: torch.Tensor):
@@ -332,10 +352,7 @@ def msm_fixed(table: FixedBaseTable, scalars: torch.Tensor) -> G1XYZZ:
     trailing batch dims must equal them), over the point set of their
     index in tb. Returns XYZZ sums of batch shape (*batch,)."""
     rows_packed, lay, n_keys, nb, batch = _fixed_inputs(table, scalars)
-    sums = _bucket_sums_mem(rows_packed, lay, n_keys)
-    buckets = map_coords(lambda cc: cc.reshape(FP.n_limbs, nb, -1), sums)
-    acc = map_coords(lambda cc: cc[..., 0], integrate_buckets(buckets))  # (24, nb)
-    return map_coords(lambda cc: cc.reshape((FP.n_limbs,) + batch), acc)
+    return _fixed_result(_bucket_sums_mem(rows_packed, lay, n_keys), nb, batch)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from kzg_tpu_torch import api, convert, kernels, settings
-from kzg_tpu_torch.ops import cuda_fft, cuda_msm, g1, launch, msm
+from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, g1, launch, msm
 from kzg_tpu_torch.ops.field import FR
 from kzg_tpu_torch.ops.field import ints_to_limbs
 
@@ -77,7 +77,7 @@ def test_add_points_checks_inputs_and_has_no_fallback():
     meta = g1.map_coords(lambda c: c.to("meta"), p)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_msm.add_points(meta, meta)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0}
 
 
 def _fr_values(B, n, seed=1):
@@ -102,7 +102,7 @@ def test_ntt_wrappers_check_inputs_and_have_no_fallback():
         cuda_fft.ntt_tile(x.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_fft.ntt_stage(x.to("meta"), 1)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0}
 
 
 def test_every_launcher_has_a_signature():
@@ -297,3 +297,33 @@ def test_variable_base_msm_on_the_card_matches_the_cpu(cuda_device):
     got = g1.xyzz_to_ints(msm.msm(on_card, sc.to(cuda_device)))
     assert launch.launches()["horner"] == 1
     assert got == g1.xyzz_to_ints(msm.msm(aff2, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width, rows, count", [(24, 4096, 655360), (25, 1000, 777), (24, 300, 1)])
+def test_gather_kernel_matches_plain(cuda_device, width, rows, count):
+    """B6 word for word against index_select, with the first and last rows
+    and repeated indices, on an aligned table and on one that starts one
+    word into its storage (the kernel's unvectorised path)."""
+    rng = np.random.default_rng(width + count)
+    tab = torch.from_numpy(rng.integers(-(2**31), 2**31, (rows, width), dtype=np.int64).astype(np.int32))
+    idx = np.concatenate([[0, rows - 1, rows - 1, 0], rng.integers(0, rows, count)])[:count].astype(np.int32)
+    idx = torch.from_numpy(idx)
+    want = cuda_gather.gather_rows_ref(tab, idx)
+    unaligned = torch.empty(rows * width + 1, dtype=torch.int32, device=cuda_device)[1:].view(rows, width)
+    unaligned.copy_(tab)
+    for t in (tab.to(cuda_device), unaligned):
+        assert torch.equal(cuda_gather.gather_rows(t, idx.to(cuda_device)).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_gather_rows_launches_or_raises_on_a_card(cuda_device):
+    tab = torch.arange(40, dtype=torch.int32, device=cuda_device).reshape(8, 5)
+    launch.reset_launches()
+    out = cuda_gather.gather_rows(tab, torch.tensor([7, 0], dtype=torch.int32, device=cuda_device))
+    assert out.cpu().tolist() == [list(range(35, 40)), list(range(5))]
+    assert launch.launches()["gather_rows"] == 1
+    with pytest.raises(IndexError, match="out of range"):
+        cuda_gather.gather_rows(tab, torch.tensor([8], dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="on cpu"):
+        cuda_gather.gather_rows(tab, torch.tensor([1], dtype=torch.int32))
