@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero, and the result line is not printed):
   1. card and builds: the card's name and power limit, torch and CUDA
      versions; build the CUDA kernels (one nvcc per source; registers and
-     spills printed) and the native host core, all at the same time;
+     spills printed, and B2 and B3 must not spill) and the native host
+     core, all at the same time;
   2. the main paths at full protocol width, through the public API, with
      the kernels' launch counts zeroed before each call and read after it:
      EIP-4844: load the mainnet setup on the card (builds the 20 x 4096
@@ -28,8 +29,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
      main paths' shapes (kernel on the card, plain version on a CPU copy
      or on the card) and on edge cases (B1, B2, B3: identity operands,
      P == Q, P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B2
-     also on the FK20 half convolution's 133,120 lanes; B3 at the verify
-     paths' shapes (1 and 2 MSMs, c = 13, 20 windows) and at 1024 lanes;
+     and B3 at 2, 4 and 8 threads per point; B2 also on the FK20 half
+     convolution's 133,120 lanes, at 1, 7, 33, 240, 1000 and 2048 lanes,
+     with one doubling lane in a 32-lane block and a block where every
+     lane doubles; B3 at the verify paths' shapes (the proof MSM: 1 and 2 MSMs,
+     c = 13, 20 windows; the commitment MSM: c = 8, 32 windows), one
+     window, c = 1, and at 1024 lanes;
      B6 word for word at the probe's shape, at the MSM's (batch 8, 25-word
      rows) and on edge cases (first and last rows, repeated indices, a
      ragged count, widths 24 and 25, an unaligned table), and an index out
@@ -44,7 +49,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
   5. timings (CUDA events) of each kernel and its plain version, with the
      least time the card could take (and, for B6, the library call
      index_select); kernels shorter than their wrapper's host overhead are
-     timed with their launches queued ahead.
+     timed with their launches queued ahead; B2 at 32,768, 133,120 and 256
+     lanes and B3 at both verify shapes, each at 2, 4 and 8 threads per
+     point, with B3's latency bounds (product rounds, and one thread's
+     products as in the earlier design).
 
 The last lines are the card line, a JSON line of kernel numbers, and
 {"ok": true, "device": {...}}.
@@ -64,11 +72,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 IMAD_PER_CLOCK_PER_SM = 64  # 32-bit integer multiply-add, compute capability 9.0
 MULADDS_PER_FMUL = 12 * (4 * 12 + 1)  # Fp CIOS: 12 rows of 4 twelve-word chains + m
 MULADDS_PER_RMUL = 8 * (4 * 8 + 1)  # Fr CIOS: 8 rows of 4 eight-word chains + m
-FMULS = {"seg_scan_phase1": 17, "add_unified": 23}
 N_SAMPLE_COLUMNS = 8  # a sampling node's columns (PeerDAS custody of 8 of 128)
 BENCH_BATCH, BENCH_ITERS = 8, 3  # the headline bench's batch, cut to 3 iterations
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
+NO_SPILL = ("add_unified_kernel", "horner_kernel")  # B2 and B3: ptxas must report no spills
 
 
 class SmokeFailure(Exception):
@@ -124,10 +132,23 @@ def build_all():
         if isinstance(res, Exception):
             raise SmokeFailure(f"{name} build failed: {res}")
         log(f"build {name}: {secs:.1f} s")
-    report = results["kernels"][0]
+    # the reports of every library, whether built now or by an earlier run
+    report = ""
+    for src in kernels.SOURCES:
+        with open(kernels.library_path(src) + ".ptxas.txt") as f:
+            report += f.read()
+    entry, spills = None, {}
     for line in report.splitlines():
+        if "Compiling entry" in line:
+            entry = next((k for k in NO_SPILL if k in line), None)
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
+        if entry and "spill" in line:
+            spills[entry] = line.strip()
+    # B2 and B3 keep every value in registers or shared memory
+    for k in NO_SPILL:
+        check(k in spills, f"ptxas reported no spill line for {k}")
+        check(spills[k].endswith(" 0 bytes spill stores, 0 bytes spill loads"), f"ptxas spills in {k}: {spills[k]}")
 
 
 def host_eval(blob: bytes, z: int, roots_brp) -> int:
@@ -201,7 +222,7 @@ def main() -> int:
     from kzg_tpu_torch.benches.common import device_ms as cuda_ms
     from kzg_tpu_torch.constants import P_MOD, R_MOD as R
     from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, field as fl, g1, g1fft, launch, msm
-    from kzg_tpu_torch.ops.field import FR
+    from kzg_tpu_torch.ops.field import FP, FR
     from kzg_tpu_torch.settings import TorchKZGSettings
 
     t_all = time.perf_counter()
@@ -215,6 +236,7 @@ def main() -> int:
 
     # ---- 1. builds -------------------------------------------------------
     build_all()
+    log(f"B2 and B3: g = {cuda_msm.GROUP} threads per point")
 
     # ---- 2. the main paths -----------------------------------------------
     setup_path = os.path.join(repo, "tests", "trusted_setup.txt")
@@ -437,13 +459,16 @@ def main() -> int:
     del got_c, rows_c, idx_c, first_c
 
     def edge_cases(p, q):
-        """Copies of p and q with P == Q in lanes 0-49, P == -Q in 50-99,
-        the identity on the right in 100-149 and on the left in 150-199."""
+        """Copies of p and q with P == Q in lanes 0-49 (every lane of the
+        kernels' first 32-lane block) and in lane 205 alone of its block,
+        P == -Q in 50-99, the identity on the right in 100-149 and on the
+        left in 150-199 (as far as there are lanes)."""
         p = g1.map_coords(lambda c: c.clone(memory_format=torch.contiguous_format), p)
         q = g1.map_coords(lambda c: c.clone(memory_format=torch.contiguous_format), q)
         neg_p = g1.neg(p)
         for k in range(4):
             q[k][:, 0:50] = p[k][:, 0:50]
+            q[k][:, 205:206] = p[k][:, 205:206]
             q[k][:, 50:100] = neg_p[k][:, 50:100]
         for pt, lo in ((q, 100), (p, 150)):
             pt.zz[:, lo : lo + 50] = 0
@@ -460,10 +485,11 @@ def main() -> int:
     src = torch.from_numpy(((np.arange(n_col)[:, None] - offsets[None, :]) % n_col).reshape(-1)).to(dev)
     lanes = g1.map_coords(lambda c: c[..., src].reshape(c.shape[0], -1).contiguous(), h_ext)
     p7, q7 = edge_cases(lanes, g1.map_coords(lambda c: torch.roll(c, 1, dims=-1), lanes))
-    compare("add_unified", cuda_msm.add_points(p7, q7), cuda_msm.add_points_ref(p7, q7))
+    ref7 = cuda_msm.add_points_ref(p7, q7)
+    compare("add_unified", cuda_msm.add_points(p7, q7), ref7)
     log(f"B2 half-convolution lanes of {N_CELL_BLOBS} blobs ({p7.x.shape[-1]} lanes, with edge cases): "
-        "exact against the plain version on the card")
-    del h_ext, lanes, p7, q7
+        f"exact against the plain version on the card")
+    del h_ext, lanes, ref7
 
     # B2: EIP-4844 main-path lane count (chunk aggregates of the 64-blob
     # scan), 2048 and a ragged 1000 with edge cases; plain version on a CPU copy
@@ -471,12 +497,14 @@ def main() -> int:
     agg_r = g1.map_coords(lambda c: torch.roll(c, 1, dims=-1).contiguous(), agg)
     b2_cases = [("main", agg_r, agg)]
     for M in (2048, 1000):
-        b2_cases.append((str(M), *edge_cases(g1.map_coords(lambda c: c[:, :M], agg),
+        b2_cases.append((f"{M}, with edge cases", *edge_cases(g1.map_coords(lambda c: c[:, :M], agg),
                                              g1.map_coords(lambda c: c[:, M : 2 * M], agg))))
+    for M in (1, 7, 33, 240):
+        b2_cases.append((f"{M}, with edge cases", *edge_cases(g1.map_coords(lambda c: c[:, :M], agg),
+                                                              g1.map_coords(lambda c: c[:, M : 2 * M], agg))))
     for label, p, q in b2_cases:
-        got = cuda_msm.add_points(p, q)
         ref = cuda_msm.add_points(g1.map_coords(lambda c: c.cpu(), p), g1.map_coords(lambda c: c.cpu(), q))
-        compare("add_unified", got, ref)
+        compare("add_unified", cuda_msm.add_points(p, q), ref)
         log(f"B2 {label} ({p.x.shape[-1]} lanes): exact")
 
     # B4 and B5 at the EIP-7594 path's shapes: the inverse 4096 and forward
@@ -520,10 +548,18 @@ def main() -> int:
     win2 = msm.window_sums(cell_inputs[0], cell_inputs[1], c_v)
     check(c_v == 13 and tuple(win2.x.shape) == (24, 2, 20), f"unexpected proof MSM windows c={c_v} {tuple(win2.x.shape)}")
     win1 = g1.map_coords(lambda t: t[:, :1].contiguous(), win2)
-    for label, win in (("2 MSMs", win2), ("1 MSM", win1)):
-        got = cuda_msm.horner_windows(win, c_v)
-        compare("horner", got, cuda_msm.horner_windows_ref(win, c_v))
-        log(f"B3 {label} (c = {c_v}, 20 windows, the 2048-cell proof MSM): exact")
+    # and the commitment MSM (1 MSM of 16 points, c = 8, 32 windows), one
+    # window, c = 1
+    c_c = msm.default_window(cell_inputs[2].x.shape[-1], fixed_base=False)
+    win_c = msm.window_sums(cell_inputs[2], cell_inputs[3], c_c)
+    check(c_c == 8 and tuple(win_c.x.shape) == (24, 1, 32), f"unexpected commitment MSM windows c={c_c} {tuple(win_c.x.shape)}")
+    for label, win, c_w in (("2 MSMs, the 2048-cell proof MSM", win2, c_v), ("1 MSM of the proof MSM", win1, c_v),
+                            ("the 2048-cell commitment MSM", win_c, c_c),
+                            ("1 MSM, one window", g1.map_coords(lambda t: t[:, :, :1].contiguous(), win1), c_v),
+                            ("2 MSMs at c = 1", win2, 1)):
+        ref = cuda_msm.horner_windows_ref(win, c_w)
+        compare("horner", cuda_msm.horner_windows(win, c_w), ref)
+        log(f"B3 {label} ({win.x.shape[1]} MSMs, c = {c_w}, {win.x.shape[2]} windows): exact")
 
     # B3 at 1024 lanes of 20 windows (doubled Lagrange table points, so zz
     # is not one) with edge lanes: all windows the identity (lane 0); the
@@ -542,9 +578,10 @@ def main() -> int:
         t[:, 0, :] = 0
         t[:, 1, 19] = 0
         t[:, 1, 7] = 0
-    got = cuda_msm.horner_windows(wide, 13)
-    compare("horner", got, cuda_msm.horner_windows_ref(wide, 13))
-    log("B3 1024 lanes (c = 13, 20 windows, with identity, P == Q and P == -Q lanes): exact against the plain version on the card")
+    ref = cuda_msm.horner_windows_ref(wide, 13)
+    compare("horner", cuda_msm.horner_windows(wide, 13), ref)
+    log(f"B3 1024 lanes (c = 13, 20 windows, with identity, P == Q and P == -Q lanes): exact against the plain "
+        f"version on the card")
 
     # B6 word for word against index_select: the probe's shape, the MSM's
     # (batch 8: the sorted rows B1 reads), and edge cases
@@ -685,14 +722,37 @@ def main() -> int:
     # ---- 5. timings --------------------------------------------------------
     p_main, q_main = agg_r, agg
     t_b1 = cuda_ms(lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64), 20)
-    t_b2 = cuda_ms(lambda: cuda_msm.add_points(p_main, q_main), 50, queue_ahead=True)
-    t_b2_plain = cuda_ms(lambda: cuda_msm.add_points_ref(p_main, q_main), 3)
     E64 = N_BLOBS * 20 * 4096  # elements the data needs (the rest is padding)
-    b1_ops = E64 * FMULS["seg_scan_phase1"] * MULADDS_PER_FMUL
+    b1_ops = E64 * cuda_msm.MADD_FMULS * MULADDS_PER_FMUL
     b1_bytes = rows64.numel() * 4 + idx64.numel() * 4 + first64.numel() + 4 * 24 * 4 * idx64.numel()
-    M2 = p_main.x.shape[-1]
-    b2_ops = M2 * FMULS["add_unified"] * MULADDS_PER_FMUL
-    b2_bytes = 12 * 24 * 4 * M2
+
+    def doubling_lanes(p, q):
+        """Lanes where the addition takes its doubling: P == Q, neither the identity."""
+        u1, u2, s1, s2 = fl.mul_many(FP, [(p.x, q.zz), (q.x, p.zz), (p.y, q.zzz), (q.y, p.zzz)])
+        need = ~g1.is_inf(p) & ~g1.is_inf(q) & fl.is_zero(FP, fl.sub(FP, u2, u1)) & fl.is_zero(FP, fl.sub(FP, s2, s1))
+        return int(need.sum())
+
+    # B2 at the main path's 32,768 lanes (the kernels line), the half
+    # convolution's 133,120 and a 256-lane tail launch. The
+    # operations bound counts the 14 products of every lane and the 9 of
+    # the doubling in the lanes that take it; the earlier design ran all 23
+    # in every lane, a bound kept beside it.
+    b2 = {}
+    for label, p, q in (("main", p_main, q_main), ("half convolution", p7, q7),
+                        ("tail", *(g1.map_coords(lambda c: c[:, :256].contiguous(), x) for x in (p_main, q_main)))):
+        M = p.x.shape[-1]
+        n_dbl = doubling_lanes(p, q)
+        t_ops = (M * cuda_msm.ADD_FMULS_DISTINCT + n_dbl * cuda_msm.DBL_FMULS) * MULADDS_PER_FMUL / peak_imad * 1e3
+        t_ops_all = M * cuda_msm.ADD_FMULS * MULADDS_PER_FMUL / peak_imad * 1e3
+        t_bytes = 12 * 24 * 4 * M / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: cuda_msm.add_points(p, q), 50, queue_ahead=True)
+        b2[label] = (ms, t_ops, t_bytes)
+        log(f"add_unified {label} ({M} lanes, {n_dbl} doubling): {ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.4f}, bytes {t_bytes:.4f}; "
+            f"all 23 products in every lane {t_ops_all:.4f}) [{card}]")
+    del p7, q7
+    t_b2, b2_ops_ms, b2_bytes_ms = b2["main"]
+    t_b2_plain = cuda_ms(lambda: cuda_msm.add_points_ref(p_main, q_main), 3)
 
     # B4: the three launches of one 16-blob call; B5: its three stage
     # launches. Each kernel's bound is the sum of its launches' bounds.
@@ -729,25 +789,29 @@ def main() -> int:
 
     # B3 at the 2048-cell call's two launches: the proof MSM (2 MSMs, c =
     # 13, 20 windows) and the commitment MSM (1 MSM of 16 points, c = 8, 32
-    # windows). Two bounds: the card's throughput (operations over every
-    # SM's multiply-add rate, or bytes) and the latency of one thread's
-    # dependent chain of (w - 1)(9 c + 23) products at the SM clock.
-    c_c = msm.default_window(cell_inputs[2].x.shape[-1], fixed_base=False)
-    win_c = msm.window_sums(cell_inputs[2], cell_inputs[3], c_c)
+    # windows). Bounds: the card's throughput (operations over
+    # every SM's multiply-add rate, or bytes), and the latency of the
+    # dependent chain at one multiply-add per clock: (w - 1)(3 c + 4)
+    # product rounds deep, and (w - 1)(9 c + 23) products for one thread
+    # running them all (the earlier design).
     b3 = {}
     for label, win, c_w in (("proof MSM", win2, c_v), ("commitment MSM", win_c, c_c)):
         nb_w, w_w = win.x.shape[1:]
         ms = cuda_ms(lambda: cuda_msm.horner_windows(win, c_w), 20)
         plain = cuda_ms(lambda: cuda_msm.horner_windows_ref(win, c_w), 2)
-        prods = (w_w - 1) * (9 * c_w + 23)
-        t_ops = nb_w * prods * MULADDS_PER_FMUL / peak_imad * 1e3
+        prods = (w_w - 1) * (cuda_msm.DBL_FMULS * c_w + cuda_msm.ADD_FMULS)
+        rounds = (w_w - 1) * (cuda_msm.DBL_DEPTH * c_w + cuda_msm.ADD_DEPTH)
+        t_ops = nb_w * (w_w - 1) * (cuda_msm.DBL_FMULS * c_w + cuda_msm.ADD_FMULS_DISTINCT) * MULADDS_PER_FMUL / peak_imad * 1e3
         t_bytes = 4 * 24 * 4 * nb_w * (w_w + 1) / HBM_BYTES_PER_S * 1e3  # w windows in, one point out
-        t_lat = prods * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
+        t_lat = rounds * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
+        t_lat_old = prods * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
         b3[label] = (ms, plain, t_ops, t_bytes, t_lat)
-        log(f"horner {label} ({nb_w} MSMs, c = {c_w}, {w_w} windows): {ms:.4f} ms (plain on the card {plain:.1f} ms); "
-            f"throughput bound {max(t_ops, t_bytes):.5f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}; "
-            f"operations {t_ops:.5f}, bytes {t_bytes:.6f}); latency bound {t_lat:.4f} ms "
-            f"({prods} dependent products, {prods * MULADDS_PER_FMUL} multiply-adds at {sm_clock_mhz:.0f} MHz) [{card}]")
+        log(f"horner {label} ({nb_w} MSMs, c = {c_w}, {w_w} windows): {ms:.4f} ms"
+            f" (plain on the card {plain:.1f} ms); throughput bound {max(t_ops, t_bytes):.5f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.5f}, bytes {t_bytes:.6f}); "
+            f"latency bound {t_lat:.4f} ms ({rounds} dependent product rounds); the earlier design's latency bound "
+            f"{t_lat_old:.4f} ms ({prods} products on one thread); {MULADDS_PER_FMUL} multiply-adds a product at "
+            f"{sm_clock_mhz:.0f} MHz [{card}]")
     t_b3, t_b3_plain, b3_ops, b3_bytes, _ = b3["proof MSM"]
 
     # B6 at the probe's shape (the row of the kernels line) and at the
@@ -773,8 +837,7 @@ def main() -> int:
         ("seg_scan_phase1", t_b1, t_plain_b1 * 1e3, max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3,
          "operations" if b1_ops / peak_imad >= b1_bytes / HBM_BYTES_PER_S else "bytes",
          "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:94"),
-        ("add_unified", t_b2, t_b2_plain, max(b2_ops / peak_imad, b2_bytes / HBM_BYTES_PER_S) * 1e3,
-         "operations" if b2_ops / peak_imad >= b2_bytes / HBM_BYTES_PER_S else "bytes",
+        ("add_unified", t_b2, t_b2_plain, max(b2_ops_ms, b2_bytes_ms), "operations" if b2_ops_ms >= b2_bytes_ms else "bytes",
          "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:209"),
         ("horner", t_b3, t_b3_plain, max(b3_ops, b3_bytes), "operations" if b3_ops >= b3_bytes else "bytes",
          "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:307"),
@@ -805,7 +868,8 @@ def main() -> int:
             f"bytes {r['bytes']:.4f} ms at 64 B/value, {r['bytes32']:.4f} ms at 32 B/value; "
             f"the kernel at {r['bound'] / r['ms']:.0%} of its bound, "
             f"{r['bound32'] / r['ms']:.0%} of the bound at 32 B/value [{card}]")
-    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {M2} lanes; B3 at the 2048-cell proof MSM's launch; "
+    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {p_main.x.shape[-1]} lanes, g = {cuda_msm.GROUP}; "
+        f"B3 at the 2048-cell proof MSM's launch, g = {cuda_msm.GROUP}; "
         f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape")
     for label, secs in verify_walls.items():
         log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "

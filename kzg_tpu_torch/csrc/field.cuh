@@ -14,7 +14,8 @@
 // over the high halves), each chain inside one asm statement so that the
 // carry flag never has to survive between statements. With a, b < p every
 // intermediate t stays below 2^416 (14 words) and the result below 2p;
-// one conditional subtraction reduces it fully.
+// one conditional subtraction reduces it fully. The modulus words are
+// immediate operands of the instructions that use them, not registers.
 #pragma once
 #include <cstdint>
 
@@ -26,9 +27,8 @@ struct Fp {
     uint32_t v[NL];
 };
 
-__device__ __constant__ uint32_t P_MOD[NL] = {
-    0xffffaaab, 0xb9feffff, 0xb153ffff, 0x1eabfffe, 0xf6b0f624, 0x6730d2a0,
-    0xf38512bf, 0x64774b84, 0x434bacd7, 0x4b1ba7b6, 0x397fe69a, 0x1a0111ea};
+// p = 0x1a0111ea...ffffaaab appears as immediate operands in mac_lo_p,
+// mac_hi_p, sub_p and add_p below, so a product holds no register for it.
 // R mod p: the Montgomery form of one
 __device__ __constant__ uint32_t ONE_MONT[NL] = {
     0x0002fffd, 0x76090000, 0xc40c0002, 0xebf4000b, 0x53c758ba, 0x5f489857,
@@ -125,9 +125,91 @@ __device__ __forceinline__ uint32_t sub_words(uint32_t r[NL], const uint32_t a[N
     return borrow;
 }
 
-__device__ __forceinline__ void load_p(uint32_t p[NL]) {
-#pragma unroll
-    for (int i = 0; i < NL; i++) p[i] = P_MOD[i];
+// t[0..11] += lo(p[j] * m), p as immediate operands; the carry runs on into
+// t[12], t[13]
+__device__ __forceinline__ void mac_lo_p(uint32_t t[14], uint32_t m) {
+    asm("{\n\t"
+        "mad.lo.cc.u32 %0, %14, 0xffffaaab, %0;\n\t"
+        "madc.lo.cc.u32 %1, %14, 0xb9feffff, %1;\n\t"
+        "madc.lo.cc.u32 %2, %14, 0xb153ffff, %2;\n\t"
+        "madc.lo.cc.u32 %3, %14, 0x1eabfffe, %3;\n\t"
+        "madc.lo.cc.u32 %4, %14, 0xf6b0f624, %4;\n\t"
+        "madc.lo.cc.u32 %5, %14, 0x6730d2a0, %5;\n\t"
+        "madc.lo.cc.u32 %6, %14, 0xf38512bf, %6;\n\t"
+        "madc.lo.cc.u32 %7, %14, 0x64774b84, %7;\n\t"
+        "madc.lo.cc.u32 %8, %14, 0x434bacd7, %8;\n\t"
+        "madc.lo.cc.u32 %9, %14, 0x4b1ba7b6, %9;\n\t"
+        "madc.lo.cc.u32 %10, %14, 0x397fe69a, %10;\n\t"
+        "madc.lo.cc.u32 %11, %14, 0x1a0111ea, %11;\n\t"
+        "addc.cc.u32 %12, %12, 0;\n\t"
+        "addc.u32 %13, %13, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(m));
+}
+
+// t[1..12] += hi(p[j] * m), p as immediate operands; the carry runs on into t[13]
+__device__ __forceinline__ void mac_hi_p(uint32_t t[14], uint32_t m) {
+    asm("{\n\t"
+        "mad.hi.cc.u32 %1, %14, 0xffffaaab, %1;\n\t"
+        "madc.hi.cc.u32 %2, %14, 0xb9feffff, %2;\n\t"
+        "madc.hi.cc.u32 %3, %14, 0xb153ffff, %3;\n\t"
+        "madc.hi.cc.u32 %4, %14, 0x1eabfffe, %4;\n\t"
+        "madc.hi.cc.u32 %5, %14, 0xf6b0f624, %5;\n\t"
+        "madc.hi.cc.u32 %6, %14, 0x6730d2a0, %6;\n\t"
+        "madc.hi.cc.u32 %7, %14, 0xf38512bf, %7;\n\t"
+        "madc.hi.cc.u32 %8, %14, 0x64774b84, %8;\n\t"
+        "madc.hi.cc.u32 %9, %14, 0x434bacd7, %9;\n\t"
+        "madc.hi.cc.u32 %10, %14, 0x4b1ba7b6, %10;\n\t"
+        "madc.hi.cc.u32 %11, %14, 0x397fe69a, %11;\n\t"
+        "madc.hi.cc.u32 %12, %14, 0x1a0111ea, %12;\n\t"
+        "addc.u32 %13, %13, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+        : "r"(m));
+}
+
+// r = a - p over 12 words; returns 0xffffffff on a borrow out, else 0
+__device__ __forceinline__ uint32_t sub_p(uint32_t r[NL], const uint32_t a[NL]) {
+    uint32_t borrow;
+    asm("{\n\t"
+        "sub.cc.u32 %0, %13, 0xffffaaab;\n\t"
+        "subc.cc.u32 %1, %14, 0xb9feffff;\n\t"
+        "subc.cc.u32 %2, %15, 0xb153ffff;\n\t"
+        "subc.cc.u32 %3, %16, 0x1eabfffe;\n\t"
+        "subc.cc.u32 %4, %17, 0xf6b0f624;\n\t"
+        "subc.cc.u32 %5, %18, 0x6730d2a0;\n\t"
+        "subc.cc.u32 %6, %19, 0xf38512bf;\n\t"
+        "subc.cc.u32 %7, %20, 0x64774b84;\n\t"
+        "subc.cc.u32 %8, %21, 0x434bacd7;\n\t"
+        "subc.cc.u32 %9, %22, 0x4b1ba7b6;\n\t"
+        "subc.cc.u32 %10, %23, 0x397fe69a;\n\t"
+        "subc.cc.u32 %11, %24, 0x1a0111ea;\n\t"
+        "subc.u32 %12, 0, 0;"
+        "\n\t}"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(r[8]), "=r"(r[9]), "=r"(r[10]), "=r"(r[11]), "=r"(borrow)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]));
+    return borrow;
+}
+
+// r = a + p over 12 words, modulo 2^384
+__device__ __forceinline__ void add_p(uint32_t r[NL], const uint32_t a[NL]) {
+    asm("{\n\t"
+        "add.cc.u32 %0, %12, 0xffffaaab;\n\t"
+        "addc.cc.u32 %1, %13, 0xb9feffff;\n\t"
+        "addc.cc.u32 %2, %14, 0xb153ffff;\n\t"
+        "addc.cc.u32 %3, %15, 0x1eabfffe;\n\t"
+        "addc.cc.u32 %4, %16, 0xf6b0f624;\n\t"
+        "addc.cc.u32 %5, %17, 0x6730d2a0;\n\t"
+        "addc.cc.u32 %6, %18, 0xf38512bf;\n\t"
+        "addc.cc.u32 %7, %19, 0x64774b84;\n\t"
+        "addc.cc.u32 %8, %20, 0x434bacd7;\n\t"
+        "addc.cc.u32 %9, %21, 0x4b1ba7b6;\n\t"
+        "addc.cc.u32 %10, %22, 0x397fe69a;\n\t"
+        "addc.u32 %11, %23, 0x1a0111ea;"
+        "\n\t}"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(r[8]), "=r"(r[9]), "=r"(r[10]), "=r"(r[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11]));
 }
 
 // mask ? a : b, limb by limb (mask is 0 or 0xffffffff)
@@ -165,29 +247,23 @@ __device__ __forceinline__ Fp fone() {
 
 // (a + b) mod p for a, b < p
 __device__ __forceinline__ Fp fadd(const Fp& a, const Fp& b) {
-    uint32_t p[NL];
-    load_p(p);
     Fp s, d;
     uint32_t carry = add_words(s.v, a.v, b.v);
-    uint32_t borrow = sub_words(d.v, s.v, p);
+    uint32_t borrow = sub_p(d.v, s.v);
     // keep s - p when a + b >= p: a carry out, or no borrow
     return fsel_mask((0u - carry) | ~borrow, d, s);
 }
 
 // (a - b) mod p for a, b < p
 __device__ __forceinline__ Fp fsub(const Fp& a, const Fp& b) {
-    uint32_t p[NL];
-    load_p(p);
     Fp d, s;
     uint32_t borrow = sub_words(d.v, a.v, b.v);
-    add_words(s.v, d.v, p);  // the carry out cancels the borrow
+    add_p(s.v, d.v);  // the carry out cancels the borrow
     return fsel_mask(borrow, s, d);
 }
 
 // a * b * 2^-384 mod p, fully reduced, for a, b < p (CIOS)
 __device__ __forceinline__ Fp fmul(const Fp& a, const Fp& b) {
-    uint32_t p[NL];
-    load_p(p);
     uint32_t t[14];
 #pragma unroll
     for (int i = 0; i < 14; i++) t[i] = 0;
@@ -196,8 +272,8 @@ __device__ __forceinline__ Fp fmul(const Fp& a, const Fp& b) {
         mac_lo(t, a.v, b.v[i]);
         mac_hi(t, a.v, b.v[i]);
         uint32_t m = t[0] * P_INV;
-        mac_lo(t, p, m);
-        mac_hi(t, p, m);
+        mac_lo_p(t, m);
+        mac_hi_p(t, m);
         // t[0] is now 0: shift down one word
 #pragma unroll
         for (int j = 0; j < 13; j++) t[j] = t[j + 1];
@@ -207,7 +283,7 @@ __device__ __forceinline__ Fp fmul(const Fp& a, const Fp& b) {
     Fp r, d;
 #pragma unroll
     for (int i = 0; i < NL; i++) r.v[i] = t[i];
-    uint32_t borrow = sub_words(d.v, r.v, p);
+    uint32_t borrow = sub_p(d.v, r.v);
     return fsel_mask(borrow, r, d);
 }
 

@@ -21,24 +21,36 @@
 //     add_points_tiled, tiled_add_unified). Elementwise complete XYZZ
 //     addition over any flat batch: the chunk-aggregate scan and carry-in
 //     (phases 2-3) and the bucket-integration reductions and suffix scans.
-//     Bound: integer operations (23 Montgomery products per addition against
-//     384 bytes in and 384 bytes out). Design: one thread per point pair, the
-//     whole addition in registers, 16-bit limb loads and stores coalesced
-//     across the threads of a warp; the launcher takes any lane count.
+//     Bound: integer operations, 14 Montgomery products per addition (9
+//     more where P == Q) against 384 bytes in and 384 bytes out. One thread
+//     per point (the earlier design) ran all 23 products of the addition and
+//     its doubling fallback in one dependent chain, at 255 registers with
+//     spills, 8 warps an SM at most; a launch of tens of lanes was one
+//     thread's latency. Design: GROUP = 4 warps (4 threads per point, chosen
+//     by measurement among 2, 4 and 8; g1.cuh) share 32 points, each product of a dependency round on one
+//     warp, the values in shared memory (g1.cuh); the doubling runs only in
+//     blocks that hold a point with P == Q. The modulus is an immediate
+//     operand (field.cuh) and a thread holds one product's operands, so
+//     under __launch_bounds__(128, 6) it needs no spills: six blocks of 128
+//     threads (24 warps) fit an SM's registers and shared memory (28 KB a
+//     block). Each warp
+//     loads and stores whole coordinates of the block's 32 points,
+//     coalesced.
 //
 // B3  horner: replaces kzg_tpu/ops/pallas_msm.py:_horner_call (entry
 //     horner_windows). The window combination of the variable-base MSM,
 //     acc = sum_j 2^(c j) W_j from the high window to the low one: c
 //     doublings and one complete addition per window, the first step
 //     taking W_{w-1} as it is. On the verify paths there are one or two
-//     MSMs (nb <= 2), so the work is one dependent chain of
-//     (w - 1)(9 c + 23) Montgomery products per lane: bound by the
-//     latency of one thread's chain, far from the card's throughput.
-//     Design: one thread per MSM lane, the XYZZ accumulator in registers
-//     for all w windows, each window read from device memory as it is
-//     needed; any lane count, in blocks of up to 128 threads. (The TPU
-//     kernel's (8, 128) lane tile, VMEM scratch and grid over the windows
-//     are not carried over.)
+//     MSMs (nb <= 2), far from the card's throughput: the time is the
+//     latency of the dependent chain. One thread per MSM (the earlier
+//     design) ran (w - 1)(9 c + 23) products one after another. Design:
+//     the same cooperative addition and doubling as B2, GROUP warps on 32
+//     MSM lanes, so the chain is (w - 1)(3 c + 4) product rounds deep; the
+//     accumulator stays in shared memory for all w windows, and each
+//     window is read from device memory as it is needed. (The TPU kernel's
+//     (8, 128) lane tile, VMEM scratch and grid over the windows are not
+//     carried over.)
 //
 // All three reduce every field value fully to [0, p), so their outputs
 // equal the plain PyTorch versions limb for limb.
@@ -60,12 +72,6 @@ __device__ __forceinline__ void store_point(int32_t* ox, int32_t* oy, int32_t* o
     store_limbs16(oy + off, stride, p.y);
     store_limbs16(ozz + off, stride, p.zz);
     store_limbs16(ozzz + off, stride, p.zzz);
-}
-
-__device__ __forceinline__ Xyzz load_point(const int32_t* x, const int32_t* y, const int32_t* zz,
-                                           const int32_t* zzz, size_t off, size_t stride) {
-    return {load_limbs16(x + off, stride), load_limbs16(y + off, stride),
-            load_limbs16(zz + off, stride), load_limbs16(zzz + off, stride)};
 }
 
 // rows: (R2, 25) packed point rows; idx, first: (K, m), element (t, lane) at
@@ -95,39 +101,62 @@ __global__ void __launch_bounds__(BLOCK) seg_scan_phase1_kernel(
     }
 }
 
-// p, q, out: (24, M) 16-bit limbs, element i at column i.
-__global__ void __launch_bounds__(BLOCK) add_unified_kernel(
-    const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-    const int32_t* __restrict__ pzz, const int32_t* __restrict__ pzzz,
-    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
-    const int32_t* __restrict__ qzz, const int32_t* __restrict__ qzzz,
-    int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ ozz,
-    int32_t* __restrict__ ozzz, int M) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= M) return;
-    Xyzz p = load_point(px, py, pzz, pzzz, i, M);
-    Xyzz q = load_point(qx, qy, qzz, qzzz, i, M);
-    store_point(ox, oy, ozz, ozzz, i, M, add_unified(p, q));
+// Coordinate pointers of point batches, picked by a warp-uniform index
+// through selects (an indexed kernel parameter would go through local memory)
+struct Coords4 {
+    int32_t *x, *y, *zz, *zzz;
+    __device__ __forceinline__ int32_t* operator[](int k) const { return k == 0 ? x : k == 1 ? y : k == 2 ? zz : zzz; }
+};
+
+struct Coords8 {
+    const int32_t *px, *py, *pzz, *pzzz, *qx, *qy, *qzz, *qzzz;
+    __device__ __forceinline__ const int32_t* operator[](int k) const {
+        return k < 4 ? (k == 0 ? px : k == 1 ? py : k == 2 ? pzz : pzzz) : (k == 4 ? qx : k == 5 ? qy : k == 6 ? qzz : qzzz);
+    }
+};
+
+// p, q (Coords8: px .. pzzz, qx .. qzzz), out: (24, M) 16-bit limbs, element
+// i at column i. Block: GROUP warps on 32 points.
+__global__ void __launch_bounds__(32 * GROUP, 24 / GROUP) add_unified_kernel(Coords8 in, Coords4 out, int M) {
+    __shared__ Slots S;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int i = blockIdx.x * GPTS + lane;
+    const bool live = i < M;
+    for (int k = warp; k < 8; k += GROUP) sst(S, k, lane, live ? load_limbs16(in[k] + i, M) : fzero());
+    __syncthreads();
+    group_add(S, warp, lane);
+    for (int k = warp; k < 4; k += GROUP) {
+        Fp r = add_result(S, k, lane);
+        if (live) store_limbs16(out[k] + i, M, r);
+    }
 }
 
 // win: (24, nb, w) 16-bit limbs, window j of MSM b at column b * w + j;
-// out: (24, nb).
-__global__ void __launch_bounds__(BLOCK) horner_kernel(
-    const int32_t* __restrict__ wx, const int32_t* __restrict__ wy,
-    const int32_t* __restrict__ wzz, const int32_t* __restrict__ wzzz,
-    int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ ozz,
-    int32_t* __restrict__ ozzz, int nb, int w, int c) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= nb) return;
+// out: (24, nb). Block: GROUP warps on 32 MSM lanes; the accumulator in slots
+// 0-3, the window added in slots 4-7. One or two MSMs make one block, so
+// the registers are not bounded for occupancy.
+__global__ void __launch_bounds__(32 * GROUP, 1) horner_kernel(Coords4 win, Coords4 out, int nb, int w, int c) {
+    __shared__ Slots S;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int b = blockIdx.x * GPTS + lane;
+    const bool live = b < nb;
     const size_t stride = (size_t)nb * w;
     const size_t base = (size_t)b * w;
-    Xyzz acc = load_point(wx, wy, wzz, wzzz, base + w - 1, stride);
+    const DblSlots acc_dbl = {X1, Y1, ZZ1, ZZZ1, X1, Y1, ZZ1, ZZZ1, U1, U2, S1, S2, PP, RR};
+    for (int k = warp; k < 4; k += GROUP) sst(S, X1 + k, lane, live ? load_limbs16(win[k] + base + w - 1, stride) : fzero());
+    __syncthreads();
+#pragma unroll 1
     for (int j = w - 2; j >= 0; j--) {
 #pragma unroll 1
-        for (int k = 0; k < c; k++) acc = dbl(acc);
-        acc = add_unified(acc, load_point(wx, wy, wzz, wzzz, base + j, stride));
+        for (int d = 0; d < c; d++) group_dbl(S, acc_dbl, true, warp, lane);
+        for (int k = warp; k < 4; k += GROUP) sst(S, X2 + k, lane, live ? load_limbs16(win[k] + base + j, stride) : fzero());
+        __syncthreads();
+        group_add(S, warp, lane);
+        for (int k = warp; k < 4; k += GROUP) sst(S, X1 + k, lane, add_result(S, k, lane));
+        __syncthreads();
     }
-    store_point(ox, oy, ozz, ozzz, b, nb, acc);
+    for (int k = warp; k < 4; k += GROUP)
+        if (live) store_limbs16(out[k] + b, nb, sld(S, X1 + k, lane));
 }
 
 }  // namespace
@@ -144,20 +173,19 @@ extern "C" int kzg_seg_scan_phase1(const void* rows, const void* idx, const void
 extern "C" int kzg_add_unified(const void* px, const void* py, const void* pzz, const void* pzzz,
                                const void* qx, const void* qy, const void* qzz, const void* qzzz,
                                void* ox, void* oy, void* ozz, void* ozzz, int M, void* stream) {
-    const int grid = (M + BLOCK - 1) / BLOCK;
-    add_unified_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz, (const int32_t*)pzzz,
-        (const int32_t*)qx, (const int32_t*)qy, (const int32_t*)qzz, (const int32_t*)qzzz,
-        (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, M);
+    Coords8 in = {(const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz, (const int32_t*)pzzz,
+                  (const int32_t*)qx, (const int32_t*)qy, (const int32_t*)qzz, (const int32_t*)qzzz};
+    Coords4 out = {(int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz};
+    const int grid = (M + GPTS - 1) / GPTS;
+    add_unified_kernel<<<grid, 32 * GROUP, 0, (cudaStream_t)stream>>>(in, out, M);
     return (int)cudaGetLastError();
 }
 
 extern "C" int kzg_horner(const void* wx, const void* wy, const void* wzz, const void* wzzz, void* ox,
                           void* oy, void* ozz, void* ozzz, int nb, int w, int c, void* stream) {
-    const int grid = (nb + BLOCK - 1) / BLOCK;
-    const int block = nb < BLOCK ? nb : BLOCK;
-    horner_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)wx, (const int32_t*)wy, (const int32_t*)wzz, (const int32_t*)wzzz,
-        (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, nb, w, c);
+    Coords4 win = {(int32_t*)wx, (int32_t*)wy, (int32_t*)wzz, (int32_t*)wzzz};
+    Coords4 out = {(int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz};
+    const int grid = (nb + GPTS - 1) / GPTS;
+    horner_kernel<<<grid, 32 * GROUP, 0, (cudaStream_t)stream>>>(win, out, nb, w, c);
     return (int)cudaGetLastError();
 }

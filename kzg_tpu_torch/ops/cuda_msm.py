@@ -26,6 +26,27 @@ from .field import FP
 L = FP.n_limbs
 ROW_WORDS = L + 1  # [12 packed x words | 12 packed y words | inf]
 
+# Montgomery products per point operation, as ops/g1.py computes them (a
+# CPU test counts them there), and the least number of dependency rounds
+# they fall into.
+MADD_FMULS = 17  # madd_unified, with its mdbl fallback
+ADD_FMULS = 23  # add_unified_plain, with its doubling fallback
+ADD_FMULS_DISTINCT = 14  # of those, the ones P != Q needs: ADD_FMULS - DBL_FMULS
+DBL_FMULS = 9  # dbl
+# Addition: u1, u2, s1, s2 need only the inputs; pp = (u2 - u1)^2 needs
+# u1, u2; ppp = pd pp needs pp; y3a = r (q0 - x3) needs q0 = u1 pp and
+# x3 = rr - ppp - 2 q0. The longest chain u1 -> pp -> ppp -> y3a is 4 deep.
+ADD_DEPTH = 4
+# Doubling: v = u^2 and xx = x^2 need only the input; w = u v, s = x v and
+# mm = (3 xx)^2 need them; y3a = m (s - x3) with x3 = mm - 2 s needs mm
+# and s, and wy = w y needs w. The chains x -> xx -> mm -> y3a and
+# y -> v -> w -> wy are 3 deep.
+DBL_DEPTH = 3
+# Threads per point in B2 and B3 (warps per block of 32 points): the
+# kernels' compile-time GROUP in csrc/g1.cuh, chosen by measurement on the
+# card among 2, 4 and 8 (PERF.md). A CPU test holds the two equal.
+GROUP = 4
+
 
 # ---------------------------------------------------------------------------
 # B1: phase 1 of the bucket segmented scan

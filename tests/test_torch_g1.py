@@ -145,3 +145,60 @@ def test_select_point_and_infinity():
     g = tg.from_affine(tg.affine_from_ints([G1_GENERATOR] * 3, "cpu"))
     mixed = tg.select_point(torch.tensor([True, False, True]), g, inf)
     assert tg.xyzz_to_ints(mixed) == [G1_GENERATOR, None, G1_GENERATOR]
+
+
+def test_product_counts_match_the_kernel_constants(pairs, monkeypatch):
+    """The products per operation that ops/cuda_msm.py states (and that
+    chip_smoke.py's bounds use) are the ones the plain versions compute:
+    madd 17; add 23, of which the doubling fallback's are dbl's 9, so
+    P != Q needs 14."""
+    P, Q = pairs
+    pj, qj = _xyzz_pair(P, Q)
+    tp, tq = _t(pj), _t(qj)
+    qa = _t(jg.affine_from_ints(_dbl_affine(Q)))
+    calls = []
+    real = tg._mul_many
+
+    def counting(pairs_):
+        calls.append(len(pairs_))
+        return real(pairs_)
+
+    monkeypatch.setattr(tg, "_mul_many", counting)
+    counts = {}
+    for name, fn in (("madd", lambda: tg.madd_unified(tp, qa)), ("add", lambda: tg.add_unified_plain(tp, tq)),
+                     ("dbl", lambda: tg.dbl(tp))):
+        calls.clear()
+        fn()
+        counts[name] = sum(calls)
+    assert counts == {"madd": cuda_msm.MADD_FMULS, "add": cuda_msm.ADD_FMULS, "dbl": cuda_msm.DBL_FMULS}
+
+
+def test_addition_without_doubling_needs_its_stated_products(pairs, monkeypatch):
+    """Of add_unified_plain's products, those that reach the sum of P != Q
+    (no identity operand) number ADD_FMULS_DISTINCT: zeroing any one of them
+    changes the sum, zeroing any other (the doubling fallback's) does not."""
+    P, Q = pairs
+    keep = [i for i in range(N) if P[i] is not None and Q[i] is not None and P[i] != Q[i] and Q[i] != G1.affine_neg(P[i])]
+    pj, qj = _xyzz_pair([P[i] for i in keep], [Q[i] for i in keep])
+    tp, tq = _t(pj), _t(qj)
+    want = tg.add_unified_plain(tp, tq)
+    real = tg._mul_many
+    seen = []
+
+    def zeroing(target):
+        def mul(pairs_):
+            out = real(pairs_)
+            first = len(seen)
+            seen.extend(range(first, first + len(out)))
+            return [torch.zeros_like(r) if first + k == target else r for k, r in enumerate(out)]
+
+        return mul
+
+    used = 0
+    for target in range(cuda_msm.ADD_FMULS):
+        seen.clear()
+        monkeypatch.setattr(tg, "_mul_many", zeroing(target))
+        got = tg.add_unified_plain(tp, tq)
+        used += not all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(seen) == cuda_msm.ADD_FMULS
+    assert used == cuda_msm.ADD_FMULS_DISTINCT == cuda_msm.ADD_FMULS - cuda_msm.DBL_FMULS

@@ -120,6 +120,15 @@ def test_every_launcher_has_a_signature():
     assert set(found.values()) == set(kernels.SOURCES)
 
 
+def test_thread_group_is_the_kernels_own():
+    """The threads per point that ops/cuda_msm.py reports are the
+    compile-time GROUP of B2's and B3's kernels."""
+    import re
+
+    with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", "g1.cuh")) as f:
+        assert re.findall(r"constexpr int GROUP = (\d+);", f.read()) == [str(cuda_msm.GROUP)]
+
+
 def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     monkeypatch.setattr(kernels.os.path, "exists", lambda path: False)
@@ -216,6 +225,38 @@ def test_add_points_kernel_matches_plain(cuda_device):
         assert torch.equal(a.cpu(), b)
 
 
+def _edge_pairs(M, device):
+    """XYZZ batches p, q of M lanes (doubled points, so zz is not one):
+    P == Q in lane 5 alone of the first 32-lane block and in every lane of
+    the second (lane 0 when M < 6), P == -Q in lane 6, the identity on the
+    right in lane 7, on the left in lane 8, on both sides in lane 9."""
+    p = g1.dbl(g1.from_affine(g1.affine_from_ints(_points(M), device)))
+    p = g1.map_coords(lambda c: c.contiguous(), p)
+    q = g1.map_coords(lambda c: torch.roll(c, 1, dims=-1).contiguous(), p)
+    neg_p = g1.neg(p)
+    same = [0] if M < 6 else [5] + list(range(32, min(M, 64)))
+    for k in range(4):
+        q[k][:, same] = p[k][:, same]
+        q[k][:, 6:7] = neg_p[k][:, 6:7]
+    for pt, lanes in ((q, slice(7, 8)), (p, slice(8, 9)), (p, slice(9, 10)), (q, slice(9, 10))):
+        pt.zz[:, lanes] = 0
+        pt.zzz[:, lanes] = 0
+    return p, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 7, 33, 100, 1000])
+def test_add_points_kernel_edge_cases(cuda_device, M):
+    """B2 at lane counts that are not multiples of the block's 32 points or
+    of the group, with a block where one lane doubles and one where every
+    lane does, identity operands on either side and P == -Q."""
+    p, q = _edge_pairs(M, cuda_device)
+    got = cuda_msm.add_points(p, q)
+    ref = cuda_msm.add_points_ref(*(g1.map_coords(lambda c: c.cpu(), x) for x in (p, q)))
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.gpu
 def test_seg_scan_kernel_matches_plain(cuda_device):
     aff = g1.affine_from_ints(_points(32) + [None], cuda_device)
@@ -277,6 +318,19 @@ def _horner_windows(device, nb, w, c):
 @pytest.mark.gpu
 @pytest.mark.parametrize("nb, w, c", [(2, 20, 13), (4, 20, 13), (300, 6, 3)])
 def test_horner_kernel_matches_plain(cuda_device, nb, w, c):
+    win = g1.map_coords(lambda t: t[:, :nb].contiguous(), _horner_windows(cuda_device, max(nb, 4), w, c))
+    got = cuda_msm.horner_windows(win, c)
+    ref = cuda_msm.horner_windows_ref(g1.map_coords(lambda t: t.cpu(), win), c)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb, w, c", [(1, 20, 13), (2, 20, 13), (1, 32, 8), (1024, 4, 2), (3, 1, 13), (5, 6, 1)])
+def test_horner_kernel_edge_shapes(cuda_device, nb, w, c):
+    """B3 at one, two and 1024 MSMs, one window, c = 1 and the verify
+    paths' shapes (the proof MSM: 2 MSMs, c = 13, 20 windows; the
+    commitment MSM: 1, c = 8, 32 windows)."""
     win = g1.map_coords(lambda t: t[:, :nb].contiguous(), _horner_windows(cuda_device, max(nb, 4), w, c))
     got = cuda_msm.horner_windows(win, c)
     ref = cuda_msm.horner_windows_ref(g1.map_coords(lambda t: t.cpu(), win), c)
