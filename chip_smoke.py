@@ -6,12 +6,13 @@
 Phases (any failure exits non-zero, and the result line is not printed):
   1. card and builds: the card's name and power limit, torch and CUDA
      versions; build the CUDA kernels (one nvcc per source; registers and
-     spills printed, and B2 and B3 must not spill) and the native host
+     spills printed, and B1, B2 and B3 must not spill) and the native host
      core, all at the same time;
   2. the main paths at full protocol width, through the public API, with
      the kernels' launch counts zeroed before each call and read after it:
-     EIP-4844: load the mainnet setup on the card (builds the 20 x 4096
-     fixed-base table), commit to 64 seeded random blobs and prove them;
+     EIP-4844: load the mainnet setup on the card, found with no path
+     given (builds the 20 x 4096 fixed-base table), commit to 64 seeded
+     random blobs and prove them;
      EIP-7594: build the FK20 column points and their c = 8 tables on the
      card, compute the cells and proofs of 16 seeded blobs in one batch
      call, then the cells of each blob through compute_cells;
@@ -28,8 +29,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
   3. each kernel against its plain PyTorch version, limb for limb, at the
      main paths' shapes (kernel on the card, plain version on a CPU copy
      or on the card) and on edge cases (B1, B2, B3: identity operands,
-     P == Q, P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B2
-     and B3 at 2, 4 and 8 threads per point; B2 also on the FK20 half
+     P == Q, P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B1
+     at the 64-blob scan, the FK20 column MSM and the verify paths' two
+     variable-base MSMs, at m = 300 and m = 1, K = 1, with one doubling
+     lane in a 32-lane block, a block where every lane doubles, identity
+     rows and an identity sum at a restart; B4 and B5 at n = 2, 512, 1024,
+     2048, 4096 and 8192; B2 also on the FK20 half
      convolution's 133,120 lanes, at 1, 7, 33, 240, 1000 and 2048 lanes,
      with one doubling lane in a 32-lane block and a block where every
      lane doubles; B3 at the verify paths' shapes (the proof MSM: 1 and 2 MSMs,
@@ -49,10 +54,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
   5. timings (CUDA events) of each kernel and its plain version, with the
      least time the card could take (and, for B6, the library call
      index_select); kernels shorter than their wrapper's host overhead are
-     timed with their launches queued ahead; B2 at 32,768, 133,120 and 256
-     lanes and B3 at both verify shapes, each at 2, 4 and 8 threads per
-     point, with B3's latency bounds (product rounds, and one thread's
-     products as in the earlier design).
+     timed with their launches queued ahead; B1 at the 64-blob scan, with
+     its bound at the 10 products a step needs (7 more where a step
+     doubles) beside the earlier design's 17; B2 at 32,768, 133,120 and
+     256 lanes; B3 at both verify shapes, with its latency bounds (product
+     rounds, and one thread's products as in the earlier design); B4 and
+     B5 at each launch of one cells call.
 
 The last lines are the card line, a JSON line of kernel numbers, and
 {"ok": true, "device": {...}}.
@@ -76,7 +83,7 @@ N_SAMPLE_COLUMNS = 8  # a sampling node's columns (PeerDAS custody of 8 of 128)
 BENCH_BATCH, BENCH_ITERS = 8, 3  # the headline bench's batch, cut to 3 iterations
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
-NO_SPILL = ("add_unified_kernel", "horner_kernel")  # B2 and B3: ptxas must report no spills
+NO_SPILL = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel")  # B1-B3: ptxas must report no spills
 
 
 class SmokeFailure(Exception):
@@ -145,7 +152,7 @@ def build_all():
             log("  ptxas:", line.strip())
         if entry and "spill" in line:
             spills[entry] = line.strip()
-    # B2 and B3 keep every value in registers or shared memory
+    # B1, B2 and B3 keep every value in registers or shared memory
     for k in NO_SPILL:
         check(k in spills, f"ptxas reported no spill line for {k}")
         check(spills[k].endswith(" 0 bytes spill stores, 0 bytes spill loads"), f"ptxas spills in {k}: {spills[k]}")
@@ -196,6 +203,26 @@ def cell_interpolant(values, h: int):
     return coeffs
 
 
+def mdbl_steps(rows, idx, first, sums) -> int:
+    """Steps of B1's scan that double: the row equals the running sum it
+    is added to, neither is the identity, and the step does not restart.
+    sums: the scan's output (its step t - 1 is the sum entering step t)."""
+    import torch
+
+    from kzg_tpu_torch.ops import cuda_msm, field as fl, g1
+    from kzg_tpu_torch.ops.field import FP
+
+    total = 0
+    for t in range(1, idx.shape[0]):
+        x, y, inf = cuda_msm.unpack_rows(rows[idx[t].long()])
+        acc = g1.map_coords(lambda c: c[:, t - 1], sums)
+        u2, s2 = fl.mul_many(FP, [(x, acc.zz), (y, acc.zzz)])
+        need = (~first[t] & ~inf & ~g1.is_inf(acc) & fl.is_zero(FP, fl.sub(FP, u2, acc.x))
+                & fl.is_zero(FP, fl.sub(FP, s2, acc.y)))
+        total += int(torch.count_nonzero(need))
+    return total
+
+
 def fft_times_ms(B: int, n: int, products: int, peak_imad: float, value_bytes: int = FR_TENSOR_BYTES) -> tuple:
     """(operations time, bytes time) in ms of a pass over (16, B, n) Fr
     values that does `products` Montgomery products, reads every value once
@@ -217,7 +244,7 @@ def main() -> int:
     sys.path.insert(0, repo)
     import numpy as np
 
-    from kzg_tpu_torch import api, bench, eip4844, eip7594, native, trusted_setup
+    from kzg_tpu_torch import api, bench, eip4844, eip7594, native, settings, trusted_setup
     from kzg_tpu_torch.benches import gather_micro, msm_stages
     from kzg_tpu_torch.benches.common import device_ms as cuda_ms
     from kzg_tpu_torch.constants import P_MOD, R_MOD as R
@@ -236,13 +263,14 @@ def main() -> int:
 
     # ---- 1. builds -------------------------------------------------------
     build_all()
-    log(f"B2 and B3: g = {cuda_msm.GROUP} threads per point")
+    log(f"B1: {cuda_msm.SCAN_GROUP} warps on 32 chunk lanes; B2 and B3: g = {cuda_msm.GROUP} threads per point")
 
     # ---- 2. the main paths -----------------------------------------------
-    setup_path = os.path.join(repo, "tests", "trusted_setup.txt")
+    setup_path = settings.trusted_setup_path()
     torch.cuda.reset_peak_memory_stats()
-    s, t_setup = timed(lambda: api.load_trusted_setup_file(setup_path))
+    s, t_setup = timed(lambda: api.load_trusted_setup_file())
     check(s.device.type == "cuda", "settings not on the card")
+    log(f"setup file (no path given): {setup_path}")
     log(f"setup decode: {t_setup:.2f} s")
 
     def synced(fn):
@@ -433,6 +461,34 @@ def main() -> int:
     compare("seg_scan_phase1", got, cuda_msm.seg_scan_phase1_mem(rows_s.cpu(), idx_s.cpu(), first_s.cpu()))
     log("B1 crafted K=8 m=256: exact")
 
+    # B1's edge shapes on the same rows: m not a multiple of the block's 32
+    # lanes, one lane, one step; one lane alone of its 32-lane block adding
+    # its running sum's own point (P == Q), a block where every lane does;
+    # identity rows and a restart on the identity (an identity sum)
+    def scan_case(K, m, seed, dbl):
+        g = np.random.default_rng(seed)
+        ix = g.integers(0, 2 * R0, (K, m))
+        fs = g.random((K, m)) < 0.25
+        if K > 5:
+            ix[4, 1::5] = 5  # a restart on the identity row
+            fs[4, 1::5] = True
+            ix[5, ::3] = 5
+        if dbl is not None:
+            ix[0, dbl] = np.where(ix[0, dbl] % R0 == 5, 6, ix[0, dbl])  # not the identity row
+            ix[1] = (ix[0] + 1) % (2 * R0)
+            ix[1, dbl] = ix[0, dbl]  # step 1 adds step 0's row to itself
+            fs[0, dbl] = True
+            fs[1, dbl] = False
+        return torch.from_numpy(ix.astype(np.int32)).to(dev), torch.from_numpy(fs).to(dev)
+
+    for label, K_e, m_e, dbl in (("m = 300", 6, 300, None), ("m = 1", 7, 1, None), ("K = 1", 1, 77, None),
+                                 ("one doubling lane of its block", 6, 96, [37]),
+                                 ("a block where every lane doubles", 6, 96, list(range(32, 64)))):
+        idx_e, first_e = scan_case(K_e, m_e, SEED + 5 + K_e + m_e, dbl)
+        got = cuda_msm.seg_scan_phase1_mem(rows_s, idx_e, first_e)
+        compare("seg_scan_phase1", got, cuda_msm.seg_scan_phase1_mem(rows_s.cpu(), idx_e.cpu(), first_e.cpu()))
+        log(f"B1 {label} (K={K_e} m={m_e}): exact")
+
     # B1 at the 64-blob main-path shape: kernel against the plain version on the card
     all_scalars = eip4844._bytes_to_limbs(
         torch.from_numpy(np.frombuffer(b"".join(blobs), np.uint8).reshape(N_BLOBS, 4096, 32).copy()).to(dev)
@@ -523,7 +579,11 @@ def main() -> int:
         ("fft 8192 x 16", torch.cat([poly16, torch.zeros_like(poly16)], dim=-1).contiguous(), False),
         ("fft 128 x (16, 64)", random_fr(16 * 64, 128), False),
         ("ifft 8192 x 3 (edge values)", random_fr(3, 8192), True),
+        ("ifft 4096 x 3 (edge values)", random_fr(3, 4096), True),
         ("fft 2048 x 5 (edge values)", random_fr(5, 2048), False),
+        ("fft 1024 x 3 (edge values)", random_fr(3, 1024), False),
+        ("ifft 512 x 5 (edge values)", random_fr(5, 512), True),
+        ("fft 2 x 7 (edge values)", random_fr(7, 2), False),
     ]
     for label, x, inverse in fft_cases:
         n = x.shape[-1]
@@ -553,6 +613,14 @@ def main() -> int:
     c_c = msm.default_window(cell_inputs[2].x.shape[-1], fixed_base=False)
     win_c = msm.window_sums(cell_inputs[2], cell_inputs[3], c_c)
     check(c_c == 8 and tuple(win_c.x.shape) == (24, 1, 32), f"unexpected commitment MSM windows c={c_c} {tuple(win_c.x.shape)}")
+    # B1 at the verify paths' two variable-base MSMs (the proof MSM and the
+    # commitment MSM of the 2048-cell call), plain version on the card
+    for label, pts_v, sc_v, c_w in (("proof MSM", cell_inputs[0], cell_inputs[1], c_v),
+                                    ("commitment MSM", cell_inputs[2], cell_inputs[3], c_c)):
+        rows_v, lay_v = msm._var_inputs(pts_v, sc_v, c_w)[:2]
+        got = cuda_msm.seg_scan_phase1_mem(rows_v, lay_v.idx, lay_v.first)
+        compare("seg_scan_phase1", got, cuda_msm.seg_scan_phase1_mem_ref(rows_v, lay_v.idx, lay_v.first))
+        log(f"B1 the 2048-cell {label}: K={lay_v.K} m={lay_v.m} exact against the plain version on the card")
     for label, win, c_w in (("2 MSMs, the 2048-cell proof MSM", win2, c_v), ("1 MSM of the proof MSM", win1, c_v),
                             ("the 2048-cell commitment MSM", win_c, c_c),
                             ("1 MSM, one window", g1.map_coords(lambda t: t[:, :, :1].contiguous(), win1), c_v),
@@ -723,8 +791,15 @@ def main() -> int:
     p_main, q_main = agg_r, agg
     t_b1 = cuda_ms(lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64), 20)
     E64 = N_BLOBS * 20 * 4096  # elements the data needs (the rest is padding)
-    b1_ops = E64 * cuda_msm.MADD_FMULS * MULADDS_PER_FMUL
+    n_mdbl = mdbl_steps(rows64, idx64, first64, got64)
+    b1_ops = (E64 * cuda_msm.MADD_FMULS_DISTINCT + n_mdbl * cuda_msm.MDBL_FMULS) * MULADDS_PER_FMUL
+    b1_ops_all = E64 * cuda_msm.MADD_FMULS * MULADDS_PER_FMUL  # the earlier design's 17 products a step
     b1_bytes = rows64.numel() * 4 + idx64.numel() * 4 + first64.numel() + 4 * 24 * 4 * idx64.numel()
+    log(f"seg_scan_phase1 64 blobs (K={K64} m={m64}, {E64} elements, {n_mdbl} steps double): {t_b1:.4f} ms; "
+        f"bound {max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3:.4f} ms (operations "
+        f"{b1_ops / peak_imad * 1e3:.4f} at {cuda_msm.MADD_FMULS_DISTINCT} products a step, bytes "
+        f"{b1_bytes / HBM_BYTES_PER_S * 1e3:.4f}); at all {cuda_msm.MADD_FMULS} products a step "
+        f"{b1_ops_all / peak_imad * 1e3:.4f} ms [{card}]")
 
     def doubling_lanes(p, q):
         """Lanes where the addition takes its doubling: P == Q, neither the identity."""
@@ -868,7 +943,8 @@ def main() -> int:
             f"bytes {r['bytes']:.4f} ms at 64 B/value, {r['bytes32']:.4f} ms at 32 B/value; "
             f"the kernel at {r['bound'] / r['ms']:.0%} of its bound, "
             f"{r['bound32'] / r['ms']:.0%} of the bound at 32 B/value [{card}]")
-    log(f"B1 timed at K={K64} m={m64} ({E64} elements); B2 at {p_main.x.shape[-1]} lanes, g = {cuda_msm.GROUP}; "
+    log(f"B1 timed at K={K64} m={m64} ({E64} elements), {cuda_msm.SCAN_GROUP} warps a block; "
+        f"B2 at {p_main.x.shape[-1]} lanes, g = {cuda_msm.GROUP}; "
         f"B3 at the 2048-cell proof MSM's launch, g = {cuda_msm.GROUP}; "
         f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape")
     for label, secs in verify_walls.items():

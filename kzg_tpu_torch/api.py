@@ -3,11 +3,15 @@ package's api.py, on a torch device: commit, prove and verify blobs;
 compute cells and their proofs, and verify cell proofs in a batch.
 
     from kzg_tpu_torch import api as kzg
-    s = kzg.load_trusted_setup_file("trusted_setup.txt")  # on the card
+    s = kzg.load_trusted_setup_file()  # the mainnet setup, on the card
     commitment = kzg.blob_to_kzg_commitment(blob, s)
 
-Entry points run on the card (CUDA) unless `device` names another one;
-with no device given and no card present, loading the setup raises.
+The parameters are the JAX package's (`kzg_tpu/api.py`), with `device`
+added last where a function places data. With no path,
+load_trusted_setup_file finds the setup as the JAX package does:
+$KZG_TPU_TRUSTED_SETUP, else the repo's tests/trusted_setup.txt. Entry
+points run on the card (CUDA) unless `device` names another one; with no
+device given and no card present, loading the setup raises.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -27,7 +31,7 @@ def load_trusted_setup(
     return TorchKZGSettings(_load_setup(g1_monomial_bytes, g1_lagrange_bytes, g2_monomial_bytes), dev)
 
 
-def load_trusted_setup_file(path: str, device: Optional[str] = None) -> Settings:
+def load_trusted_setup_file(path: Optional[str] = None, device: Optional[str] = None) -> Settings:
     return load_settings(path, device)
 
 
@@ -49,12 +53,12 @@ def compute_blob_kzg_proof_batch(
     return _e4.compute_blob_kzg_proof_batch(blobs, commitments, s)
 
 
-def compute_kzg_proof(blob: bytes, z_bytes: bytes, s: Settings) -> Tuple[bytes, bytes]:
-    return _e4.compute_kzg_proof(blob, z_bytes, s)
+def compute_kzg_proof(blob: bytes, z: bytes, s: Settings) -> Tuple[bytes, bytes]:
+    return _e4.compute_kzg_proof(blob, z, s)
 
 
-def verify_kzg_proof(commitment: bytes, z_bytes: bytes, y_bytes: bytes, proof: bytes, s: Settings) -> bool:
-    return _e4.verify_kzg_proof(commitment, z_bytes, y_bytes, proof, s)
+def verify_kzg_proof(commitment: bytes, z: bytes, y: bytes, proof: bytes, s: Settings) -> bool:
+    return _e4.verify_kzg_proof(commitment, z, y, proof, s)
 
 
 def verify_blob_kzg_proof(blob: bytes, commitment: bytes, proof: bytes, s: Settings) -> bool:

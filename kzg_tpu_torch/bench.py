@@ -110,7 +110,7 @@ def main() -> int:
     batch = int(os.environ.get("BENCH_BATCH", "8"))
     iters = int(os.environ.get("BENCH_ITERS", "10"))
     t0 = time.perf_counter()
-    s = api.load_trusted_setup_file(common.SETUP_PATH)
+    s = api.load_trusted_setup_file()
     table, _ = common.wall_s(lambda: s.lagrange_table)
     log(f"setup + table: {time.perf_counter() - t0:.1f} s (c={table.c})")
     r = measure(table, s.setup.g1_lagrange_brp, batch, iters)

@@ -1,9 +1,8 @@
-"""What the port's bench scripts share: the card line, the mainnet setup's
-path, seeded canonical scalars made with numpy, and the timers (CUDA
-events for device time; the host clock between two synchronizes for wall
-time)."""
+"""What the port's bench scripts share: the card line, seeded canonical
+scalars made with numpy, and the timers (CUDA events for device time; the
+host clock between two synchronizes for wall time). The benches load the
+mainnet setup with `api.load_trusted_setup_file()`, which finds it."""
 
-import os
 import subprocess
 import sys
 import time
@@ -14,8 +13,6 @@ import torch
 from ..constants import R_MOD
 from ..ops.field import FR, ints_to_limbs
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SETUP_PATH = os.path.join(REPO, "tests", "trusted_setup.txt")
 _R_LIMBS = ints_to_limbs([R_MOD], FR.n_limbs)[:, 0]
 
 

@@ -175,7 +175,7 @@ def main(argv=None) -> int:
     if {"dg_msm", "row_raw_msm"} & set(names):
         from .. import api
 
-        s = api.load_trusted_setup_file(common.SETUP_PATH)
+        s = api.load_trusted_setup_file()
         p.update(msm_probe(s.lagrange_table))
     res = run(p, names)
     print(f"B6 bound: probe {res['dg_bound_ms']:.4f} ms" +

@@ -163,7 +163,7 @@ def main(argv=None) -> int:
     from .. import api
 
     card = common.card_line()
-    s = api.load_trusted_setup_file(common.SETUP_PATH)
+    s = api.load_trusted_setup_file()
     table, secs = common.wall_s(lambda: s.lagrange_table)
     print(f"card: {card}; table c={table.c} ({secs:.1f} s)")
     rng = np.random.default_rng(42)

@@ -239,7 +239,7 @@ def main(argv=None) -> int:
 
     tab = Table(args, time.time())
     print(f"card: {common.card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", file=sys.stderr)
-    s = kzg.load_trusted_setup_file(common.SETUP_PATH)
+    s = kzg.load_trusted_setup_file()
     dev = s.device
     rng = np.random.default_rng(7)
     blob = random_blob(rng)

@@ -1,71 +1,16 @@
 // G1 point arithmetic on XYZZ coordinates for sm_90a, on top of field.cuh.
 //
 // The same formulas and the same selects of the edge cases (identity
-// operands, P == Q, P == -Q) as the package's ops/g1.py: madd_unified
-// (XYZZ + affine, madd-2008-s with the mdbl fallback) for one thread, and
-// the addition (XYZZ + XYZZ, add-2008-s with the dbl-2008-s fallback) and
-// the doubling (dbl-2008-s) for a block of warps, cooperatively. Every
+// operands, P == Q, P == -Q) as the package's ops/g1.py: the addition
+// (XYZZ + XYZZ, add-2008-s with the dbl-2008-s fallback) and the doubling
+// (dbl-2008-s) for a block of warps, cooperatively; the mixed addition of
+// kernel B1 (msm_kernels.cu) uses the same slot layout and accessors. Every
 // field result is fully reduced, so the points equal the plain PyTorch
 // version's limb for limb.
 #pragma once
 #include "field.cuh"
 
 namespace kzg {
-
-struct Xyzz {
-    Fp x, y, zz, zzz;
-};
-
-struct Aff {
-    Fp x, y;
-    bool inf;
-};
-
-__device__ __forceinline__ Xyzz psel(bool c, const Xyzz& a, const Xyzz& b) {
-    return {fsel(c, a.x, b.x), fsel(c, a.y, b.y), fsel(c, a.zz, b.zz), fsel(c, a.zzz, b.zzz)};
-}
-
-__device__ __forceinline__ Xyzz from_affine(const Aff& a) {
-    Fp zz = fsel(a.inf, fzero(), fone());
-    return {a.x, a.y, zz, zz};
-}
-
-__device__ __forceinline__ Xyzz madd_unified(const Xyzz& p, const Aff& a) {
-    Fp U = fadd(a.y, a.y);
-    Fp u2 = fmul(a.x, p.zz);
-    Fp s2 = fmul(a.y, p.zzz);
-    Fp V = fmul(U, U);
-    Fp xx = fmul(a.x, a.x);
-    Fp pd = fsub(u2, p.x);
-    Fp r = fsub(s2, p.y);
-
-    bool inf1 = fis_zero(p.zz);
-    bool inf2 = a.inf;
-    bool need_dbl = !inf1 && !inf2 && fis_zero(pd) && fis_zero(r);
-
-    Fp pp = fmul(pd, pd);
-    Fp W = fmul(U, V);
-    Fp Sd = fmul(a.x, V);
-    Fp M = fadd(fadd(xx, xx), xx);
-    Fp ppp = fmul(pd, pp);
-    Fp q0 = fmul(p.x, pp);
-    Fp rr = fmul(r, r);
-    Fp MM = fmul(M, M);
-    Fp x3 = fsub(fsub(rr, ppp), fadd(q0, q0));
-    Fp x3d = fsub(MM, fadd(Sd, Sd));
-    Fp y3a = fmul(r, fsub(q0, x3));
-    Fp sppp = fmul(p.y, ppp);
-    Fp zz3 = fmul(p.zz, pp);
-    Fp zzz3 = fmul(p.zzz, ppp);
-    Fp msd = fmul(M, fsub(Sd, x3d));
-    Fp wy = fmul(W, a.y);
-
-    Xyzz res = {x3, fsub(y3a, sppp), zz3, zzz3};
-    Xyzz dres = {x3d, fsub(msd, wy), V, W};
-    res = psel(need_dbl, dres, res);
-    res = psel(inf2, p, res);
-    return psel(inf1, from_affine(a), res);
-}
 
 // ---------------------------------------------------------------------------
 // Cooperative point arithmetic (kernels B2 and B3). A block of GROUP warps
@@ -97,14 +42,18 @@ struct Slots {
     uint8_t pd0[GPTS], r0[GPTS], inf1[GPTS], inf2[GPTS];
 };
 
-__device__ __forceinline__ Fp sld(const Slots& S, int s, int lane) {
+// field value s of a block's point `lane`, in any slot struct with a
+// w[slot][word][lane] array
+template <class SlotsT>
+__device__ __forceinline__ Fp sld(const SlotsT& S, int s, int lane) {
     Fp r;
 #pragma unroll
     for (int i = 0; i < NL; i++) r.v[i] = S.w[s][i][lane];
     return r;
 }
 
-__device__ __forceinline__ void sst(Slots& S, int s, int lane, const Fp& a) {
+template <class SlotsT>
+__device__ __forceinline__ void sst(SlotsT& S, int s, int lane, const Fp& a) {
 #pragma unroll
     for (int i = 0; i < NL; i++) S.w[s][i][lane] = a.v[i];
 }

@@ -7,15 +7,28 @@
 //     each chunk lane runs K sequential mixed additions (XYZZ += affine) over
 //     its run of the key-sorted elements, restarting at segment starts and at
 //     the chunk start, and writes the inclusive scan at every step.
-//     Bound on this card: integer operations. One madd_unified is 17 Montgomery
-//     products of 12 x 49 32-bit multiply-adds; the bytes (a 100-byte row in,
-//     384 bytes out per step) are far below the multiply-add time at 3.35 TB/s.
-//     Design: one thread per chunk lane, the XYZZ accumulator (48 words) kept
-//     in registers across all K steps, so nothing but the outputs leaves the
-//     SM. The kernel gathers its own rows from the packed point table by the
-//     sorted source-row index (the TPU path gathered them in a separate pass);
-//     the 32-bit words of a row are the field's 32-bit limbs, so a row needs
-//     no unpacking. Neighbouring threads write neighbouring addresses.
+//     Bound on this card: integer operations. A step of a lane needs 10
+//     Montgomery products of 12 x 49 32-bit multiply-adds (madd-2008-s
+//     without its doubling), and 7 more in a step where the row equals the
+//     running sum (mdbl, the doubling of the row); the bytes (a 100-byte row
+//     in, 384 bytes out a step) take a third of the multiply-add time at
+//     3.35 TB/s. One thread per lane (the earlier design) ran all 17
+//     products, the doubling's included, in one dependent chain at 255
+//     registers with spills: 8 warps an SM. Design: scan::GROUP = 3 warps
+//     (2, and 4 at six blocks an SM, measured slower: PERF.md) share a
+//     block's 32 lanes, the running sums in shared memory slots for
+//     all K steps (B2's layout, g1.cuh). A step is 4 dependency rounds of
+//     at most 3 products, one warp each: u2 = x zz1, s2 = y zzz1 | pp =
+//     pd^2, rr = r^2 | ppp = pd pp, q0 = x1 pp, zz3 = zz1 pp | y3a = r (q0 -
+//     x3), sppp = y1 ppp, zzz3 = zzz1 ppp. The warp idle in round 1 gathers
+//     the next step's rows into a second row buffer and writes the last
+//     step's sums out, so neither is on the chain; the selects of a step
+//     (restart, identity operands, doubling) run in round 0 of the next.
+//     The doubling's 3 rounds run only in a block where __syncthreads_or
+//     finds a lane with P == Q. Under __launch_bounds__(96, 8) eight blocks
+//     (24 warps, 28 KB of slots each) fit an SM, so the main path's 1,024
+//     blocks (32,768 lanes) run in one wave on 132 SMs. Neighbouring lanes
+//     write neighbouring addresses.
 //
 // B2  add_unified: replaces kzg_tpu/ops/pallas_msm.py:_add_call (entries
 //     add_points_tiled, tiled_add_unified). Elementwise complete XYZZ
@@ -64,42 +77,6 @@ using namespace kzg;
 namespace {
 
 constexpr int ROW_WORDS = 2 * NL + 1;  // [x | y | inf]
-constexpr int BLOCK = 128;
-
-__device__ __forceinline__ void store_point(int32_t* ox, int32_t* oy, int32_t* ozz, int32_t* ozzz,
-                                            size_t off, size_t stride, const Xyzz& p) {
-    store_limbs16(ox + off, stride, p.x);
-    store_limbs16(oy + off, stride, p.y);
-    store_limbs16(ozz + off, stride, p.zz);
-    store_limbs16(ozzz + off, stride, p.zzz);
-}
-
-// rows: (R2, 25) packed point rows; idx, first: (K, m), element (t, lane) at
-// t * m + lane; outputs: (24, K, m) 16-bit limbs.
-__global__ void __launch_bounds__(BLOCK) seg_scan_phase1_kernel(
-    const uint32_t* __restrict__ rows, const int32_t* __restrict__ idx,
-    const uint8_t* __restrict__ first, int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-    int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int K, int m) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= m) return;
-    const size_t stride = (size_t)K * m;
-    Xyzz acc = {fzero(), fzero(), fzero(), fzero()};
-    for (int t = 0; t < K; t++) {
-        const size_t e = (size_t)t * m + lane;
-        const uint32_t* row = rows + (size_t)idx[e] * ROW_WORDS;
-        Aff a;
-#pragma unroll
-        for (int i = 0; i < NL; i++) {
-            a.x.v[i] = row[i];
-            a.y.v[i] = row[NL + i];
-        }
-        a.inf = row[2 * NL] != 0;
-        Xyzz comb = madd_unified(acc, a);
-        // a segment start or the chunk start restarts the running sum
-        acc = psel(first[e] != 0 || t == 0, from_affine(a), comb);
-        store_point(ox, oy, ozz, ozzz, e, stride, acc);
-    }
-}
 
 // Coordinate pointers of point batches, picked by a warp-uniform index
 // through selects (an indexed kernel parameter would go through local memory)
@@ -114,6 +91,231 @@ struct Coords8 {
         return k < 4 ? (k == 0 ? px : k == 1 ? py : k == 2 ? pzz : pzzz) : (k == 4 ? qx : k == 5 ? qy : k == 6 ? qzz : qzzz);
     }
 };
+
+// ---------------------------------------------------------------------------
+// B1. Step t of a block keeps its flags in parity t & 1 and reads its row
+// from buffer t & 1, so the next step's row and the previous step's flags
+// live beside them. The slots:
+//   SX .. SZZZ    the running sum (after the selects of the last step)
+//   RX, RY        the row (x, y) of buffer 0; RX + 2, RY + 2 of buffer 1
+//   PD, RS        pd = u2 - x1, r = s2 - y1 (round 0)
+//   PP, RR        pd^2, r^2 (round 1)
+//   PPP, Q0, Z3   pd pp, x1 pp, zz1 pp (round 2)
+//   X3, Y3A, SP, W3   x3 (in PD's slot), r (q0 - x3) (in PP's), y1 ppp,
+//                 zzz1 ppp (round 3)
+// The doubling of the row (mdbl, after round 3) writes x3d, v and w into
+// SX, SZZ and SZZZ of the lanes that double (no select reads them there),
+// and leaves msd and wy (y3d = msd - wy) in Q0's and RS's slots.
+// ---------------------------------------------------------------------------
+namespace scan {
+
+constexpr int GROUP = 3;  // warps per block of 32 lanes; ops/cuda_msm.py states the same SCAN_GROUP
+constexpr int BLOCKS_PER_SM = 8;
+constexpr int LOADER = 2 % GROUP;  // round 1's task 2: loads rows, writes sums (a warp idle in round 1)
+
+enum : int {
+    SX = 0, SY, SZZ, SZZZ, RX, RY,  // RX + 2 b, RY + 2 b: row buffer b
+    PD = 8, RS, PP, RR, PPP, Q0, Z3, SP, W3, T17, NSLOT_SCAN,
+    X3 = PD, Y3A = PP,
+    DV = RS, DXX = RR, DW = PPP, DS = Q0, DMM = T17, DMSD = Q0, DWY = RS,
+};
+
+struct ScanSlots {
+    uint32_t w[NSLOT_SCAN][NL][GPTS];
+    // per row buffer or step parity, one byte per lane
+    uint8_t first[2][GPTS];  // the row restarts the sum (segment or chunk start)
+    uint8_t inf2[2][GPTS];   // the row is the identity
+    uint8_t inf1[2][GPTS];   // the running sum entering the step is the identity
+    uint8_t pd0[2][GPTS], r0[2][GPTS];
+};
+
+// Coordinate k (0-3) of the sum after the step of parity q: the selects of
+// ops/g1.py madd_unified and of the scan's restart, in their order
+__device__ __forceinline__ Fp select(const ScanSlots& S, int k, int q, int lane) {
+    const bool inf1 = S.inf1[q][lane], inf2 = S.inf2[q][lane];
+    const bool dbl = S.pd0[q][lane] && S.r0[q][lane] && !inf1 && !inf2;
+    const Fp old = sld(S, SX + k, lane);  // the doubling's x, zz, zzz where it doubled
+    Fp r;
+    switch (k) {
+        case 0: r = sld(S, X3, lane); break;
+        case 1:
+            r = dbl ? fsub(sld(S, DMSD, lane), sld(S, DWY, lane)) : fsub(sld(S, Y3A, lane), sld(S, SP, lane));
+            break;
+        case 2: r = sld(S, Z3, lane); break;
+        default: r = sld(S, W3, lane); break;
+    }
+    r = fsel(dbl && k != 1, old, r);
+    r = fsel(inf2, old, r);
+    Fp aff = k == 0 ? sld(S, RX + 2 * q, lane) : k == 1 ? sld(S, RY + 2 * q, lane) : fsel(inf2, fzero(), fone());
+    return fsel(S.first[q][lane] || inf1, aff, r);
+}
+
+// The row of step u (element u * m + j) into row buffer b
+__device__ __forceinline__ void load_row(ScanSlots& S, const uint32_t* rows, int r, const uint8_t* first, int u,
+                                         int m, int j, bool live, int b, int lane) {
+    Fp x = fzero(), y = fzero();
+    uint32_t inf = 1;
+    bool restart = true;
+    if (live) {
+        const uint32_t* row = rows + (size_t)r * ROW_WORDS;
+#pragma unroll
+        for (int i = 0; i < NL; i++) {
+            x.v[i] = row[i];
+            y.v[i] = row[NL + i];
+        }
+        inf = row[2 * NL];
+        restart = u == 0 || first[(size_t)u * m + j] != 0;
+    }
+    sst(S, RX + 2 * b, lane, x);
+    sst(S, RY + 2 * b, lane, y);
+    S.inf2[b][lane] = inf != 0;
+    S.first[b][lane] = restart;
+}
+
+// rows: (R2, 25) packed point rows; idx, first: (K, m), element (t, j) at
+// t * m + j; outputs: (24, K, m) 16-bit limbs. Block: GROUP warps on 32
+// chunk lanes j.
+__global__ void __launch_bounds__(32 * GROUP, BLOCKS_PER_SM) seg_scan_phase1_kernel(
+    const uint32_t* __restrict__ rows, const int32_t* __restrict__ idx, const uint8_t* __restrict__ first,
+    Coords4 out, int K, int m) {
+    __shared__ ScanSlots S;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int j = blockIdx.x * GPTS + lane;
+    const bool live = j < m;
+    const size_t stride = (size_t)K * m;
+    int next_idx = 0;  // the loader's row index of the step after the next
+
+    for (int k = warp; k < 4; k += GROUP) sst(S, SX + k, lane, fzero());
+    if (warp == LOADER) {
+        load_row(S, rows, live ? idx[j] : 0, first, 0, m, j, live, 0, lane);
+        if (live && K > 1) next_idx = idx[(size_t)m + j];
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int t = 0; t < K; t++) {
+        const int b = t & 1, q = b ^ 1;
+        // round 0, after the selects of step t - 1 (parity q). Task 0: x and
+        // zz, then pd = x zz1 - x1; task 1: y and zzz, then r = y zzz1 - y1
+        for (int k = warp; k < 2; k += GROUP) {
+            Fp zz1;
+            if (t > 0) {
+                sst(S, SX + k, lane, select(S, k, q, lane));
+                zz1 = select(S, SZZ + k, q, lane);
+                sst(S, SZZ + k, lane, zz1);
+            } else {
+                zz1 = sld(S, SZZ + k, lane);
+            }
+            Fp d = fsub(fmul(sld(S, (k == 0 ? RX : RY) + 2 * b, lane), zz1), sld(S, SX + k, lane));
+            sst(S, k == 0 ? PD : RS, lane, d);
+            if (k == 0) {
+                S.pd0[b][lane] = fis_zero(d);
+                S.inf1[b][lane] = fis_zero(zz1);
+            } else {
+                S.r0[b][lane] = fis_zero(d);
+            }
+        }
+        __syncthreads();
+        // round 1; task 2 (the loader) brings step t + 1's row and writes
+        // step t - 1's sum
+        for (int k = warp; k < 3; k += GROUP) {
+            if (k < 2) {
+                Fp a = sld(S, k == 0 ? PD : RS, lane);
+                sst(S, k == 0 ? PP : RR, lane, fmul(a, a));
+            } else {
+                if (t + 1 < K) {
+                    load_row(S, rows, next_idx, first, t + 1, m, j, live, q, lane);
+                    if (live && t + 2 < K) next_idx = idx[(size_t)(t + 2) * m + j];
+                }
+                if (t > 0 && live)
+                    for (int c = 0; c < 4; c++) store_limbs16(out[c] + (size_t)(t - 1) * m + j, stride, sld(S, SX + c, lane));
+            }
+        }
+        const bool need_dbl = S.pd0[b][lane] && S.r0[b][lane] && !S.inf1[b][lane] && !S.inf2[b][lane];
+        const bool any_dbl = __syncthreads_or(need_dbl);
+        // round 2: ppp = pd pp, q0 = x1 pp, zz3 = zz1 pp
+        for (int k = warp; k < 3; k += GROUP) {
+            Fp a = sld(S, k == 0 ? PD : k == 1 ? SX : SZZ, lane);
+            sst(S, k == 0 ? PPP : k == 1 ? Q0 : Z3, lane, fmul(a, sld(S, PP, lane)));
+        }
+        __syncthreads();
+        // round 3: y3a = r (q0 - x3) with x3 = rr - ppp - 2 q0, sppp = y1 ppp,
+        // zzz3 = zzz1 ppp
+        for (int k = warp; k < 3; k += GROUP) {
+            Fp a, c;
+            if (k == 0) {
+                Fp q0 = sld(S, Q0, lane);
+                Fp x3 = fsub(fsub(sld(S, RR, lane), sld(S, PPP, lane)), fadd(q0, q0));
+                sst(S, X3, lane, x3);
+                a = sld(S, RS, lane);
+                c = fsub(q0, x3);
+            } else {
+                a = sld(S, k == 1 ? SY : SZZZ, lane);
+                c = sld(S, PPP, lane);
+            }
+            sst(S, k == 0 ? Y3A : k == 1 ? SP : W3, lane, fmul(a, c));
+        }
+        __syncthreads();
+        if (any_dbl) {
+            // mdbl of the row (dbl-2008-s at zz = zzz = 1, madd_unified's
+            // fallback): v = u^2 (u = 2 y), xx = x^2 | w = u v, s = x v,
+            // mm = m^2 (m = 3 xx) | msd = m (s - x3d) (x3d = mm - 2 s),
+            // wy = w y
+            const int rx = RX + 2 * b, ry = RY + 2 * b;
+            for (int k = warp; k < 2; k += GROUP) {
+                Fp a = sld(S, k == 0 ? ry : rx, lane);
+                if (k == 0) a = fadd(a, a);
+                Fp r = fmul(a, a);
+                sst(S, k == 0 ? DV : DXX, lane, r);
+                if (k == 0 && need_dbl) sst(S, SZZ, lane, r);
+            }
+            __syncthreads();
+            for (int k = warp; k < 3; k += GROUP) {
+                Fp a, c;
+                if (k == 0) {
+                    a = sld(S, ry, lane);
+                    a = fadd(a, a);
+                    c = sld(S, DV, lane);
+                } else if (k == 1) {
+                    a = sld(S, rx, lane);
+                    c = sld(S, DV, lane);
+                } else {
+                    Fp xx = sld(S, DXX, lane);
+                    a = fadd(fadd(xx, xx), xx);
+                    c = a;
+                }
+                Fp r = fmul(a, c);
+                sst(S, k == 0 ? DW : k == 1 ? DS : DMM, lane, r);
+                if (k == 0 && need_dbl) sst(S, SZZZ, lane, r);
+            }
+            __syncthreads();
+            for (int k = warp; k < 2; k += GROUP) {
+                if (k == 0) {
+                    Fp s = sld(S, DS, lane);
+                    Fp x3d = fsub(sld(S, DMM, lane), fadd(s, s));
+                    if (need_dbl) sst(S, SX, lane, x3d);
+                    Fp xx = sld(S, DXX, lane);
+                    sst(S, DMSD, lane, fmul(fadd(fadd(xx, xx), xx), fsub(s, x3d)));
+                } else {
+                    sst(S, DWY, lane, fmul(sld(S, DW, lane), sld(S, ry, lane)));
+                }
+            }
+            __syncthreads();
+        }
+    }
+    // the selects of the last step, then its sums
+    const int q = (K - 1) & 1;
+    for (int k = warp; k < 2; k += GROUP) {
+        Fp a = select(S, k, q, lane);
+        Fp c = select(S, SZZ + k, q, lane);
+        sst(S, SX + k, lane, a);
+        sst(S, SZZ + k, lane, c);
+    }
+    __syncthreads();
+    if (live)
+        for (int c = warp; c < 4; c += GROUP) store_limbs16(out[c] + (size_t)(K - 1) * m + j, stride, sld(S, SX + c, lane));
+}
+
+}  // namespace scan
 
 // p, q (Coords8: px .. pzzz, qx .. qzzz), out: (24, M) 16-bit limbs, element
 // i at column i. Block: GROUP warps on 32 points.
@@ -163,10 +365,14 @@ __global__ void __launch_bounds__(32 * GROUP, 1) horner_kernel(Coords4 win, Coor
 
 extern "C" int kzg_seg_scan_phase1(const void* rows, const void* idx, const void* first, void* ox,
                                    void* oy, void* ozz, void* ozzz, int K, int m, void* stream) {
-    const int grid = (m + BLOCK - 1) / BLOCK;
-    seg_scan_phase1_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)rows, (const int32_t*)idx, (const uint8_t*)first, (int32_t*)ox,
-        (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, K, m);
+    // eight blocks' slots need the largest shared memory carveout
+    cudaError_t err = cudaFuncSetAttribute(scan::seg_scan_phase1_kernel,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    Coords4 out = {(int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz};
+    const int grid = (m + GPTS - 1) / GPTS;
+    scan::seg_scan_phase1_kernel<<<grid, 32 * scan::GROUP, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)rows, (const int32_t*)idx, (const uint8_t*)first, out, K, m);
     return (int)cudaGetLastError();
 }
 

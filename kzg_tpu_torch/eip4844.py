@@ -272,30 +272,31 @@ def _check_proof_single(s: TorchKZGSettings, commitment, proof, z: int, y: int) 
     return native.pairings_verify(lhs, G2_GENERATOR, proof, s.g2_monomial[1])
 
 
-def compute_kzg_proof(blob_bytes: bytes, z_bytes: bytes, s: TorchKZGSettings) -> Tuple[bytes, bytes]:
-    """The proof of the blob's polynomial at z, and y = p(z) (32 bytes,
-    big-endian): the prove body at an arbitrary z."""
+def compute_kzg_proof(blob_bytes: bytes, z: bytes, s: TorchKZGSettings) -> Tuple[bytes, bytes]:
+    """The proof of the blob's polynomial at z (32 bytes, big-endian), and
+    y = p(z) (32 bytes, big-endian): the prove body at an arbitrary z."""
     _check_blob_length(blob_bytes)
-    z = bs.fr_from_bytes(z_bytes)  # (16, 1); raises on length and canonicality
+    z_host = bs.fr_from_bytes(z)  # (16, 1); raises on length and canonicality
     poly = torch.from_numpy(bs.blobs_to_scalars([blob_bytes])).to(s.device)
-    z_limbs = torch.from_numpy(z)[:, :, None].to(s.device)
+    z_limbs = torch.from_numpy(z_host)[:, :, None].to(s.device)
     aff, y_m = _prove_body(poly, z_limbs, s.roots_brp_mont, s.lagrange_table)
     y = fl.to_canonical(FR, y_m)[:, :, 0].cpu().numpy()
     return _affine_to_bytes(aff)[0], bs.frs_to_bytes(y)
 
 
 def verify_kzg_proof(
-    commitment_bytes: bytes, z_bytes: bytes, y_bytes: bytes, proof_bytes: bytes, s: TorchKZGSettings
+    commitment_bytes: bytes, z: bytes, y: bytes, proof_bytes: bytes, s: TorchKZGSettings
 ) -> bool:
-    """One opening, checked on the host: decompress, then one pairing."""
+    """One opening (z and y 32 bytes each, big-endian), checked on the
+    host: decompress, then one pairing."""
     if len(commitment_bytes) != 48 or len(proof_bytes) != 48:
         raise ValueError("Invalid commitment/proof length")
-    if len(z_bytes) != 32 or len(y_bytes) != 32:
+    if len(z) != 32 or len(y) != 32:
         raise ValueError("Invalid field element length")
     commitment, proof = native.g1_decompress_batch(commitment_bytes + proof_bytes)
-    bs.fr_from_bytes(z_bytes)  # canonicality (raises)
-    bs.fr_from_bytes(y_bytes)
-    return _check_proof_single(s, commitment, proof, int.from_bytes(z_bytes, "big"), int.from_bytes(y_bytes, "big"))
+    bs.fr_from_bytes(z)  # canonicality (raises)
+    bs.fr_from_bytes(y)
+    return _check_proof_single(s, commitment, proof, int.from_bytes(z, "big"), int.from_bytes(y, "big"))
 
 
 def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings):

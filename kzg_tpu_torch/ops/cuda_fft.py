@@ -33,7 +33,7 @@ from . import launch
 from .field import FR
 
 L = FR.n_limbs
-MAX_LOG_TILE = 11  # B4's tile: 2^11 Fr values, 64 KB of shared memory
+MAX_LOG_TILE = 11  # B4's tile: 2^11 Fr values, a cluster of 8 blocks of 2^8 (csrc/fft_kernels.cu)
 
 
 def brp_indices(n: int) -> np.ndarray:

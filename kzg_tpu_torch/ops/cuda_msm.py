@@ -30,6 +30,13 @@ ROW_WORDS = L + 1  # [12 packed x words | 12 packed y words | inf]
 # CPU test counts them there), and the least number of dependency rounds
 # they fall into.
 MADD_FMULS = 17  # madd_unified, with its mdbl fallback
+# Of those, the ones P != Q needs (madd-2008-s): u2 = x zz1, s2 = y zzz1,
+# pp = pd^2, rr = r^2, ppp = pd pp, q0 = x1 pp, zz3 = zz1 pp,
+# y3a = r (q0 - x3), sppp = y1 ppp, zzz3 = zzz1 ppp. The other 7 (v = u^2,
+# xx = x^2, w = u v, s = x v, mm = m^2, m (s - x3d), w y) double the row,
+# for P == Q only. Their chain u2 -> pp -> ppp -> y3a is 4 rounds deep.
+MADD_FMULS_DISTINCT = 10
+MDBL_FMULS = MADD_FMULS - MADD_FMULS_DISTINCT
 ADD_FMULS = 23  # add_unified_plain, with its doubling fallback
 ADD_FMULS_DISTINCT = 14  # of those, the ones P != Q needs: ADD_FMULS - DBL_FMULS
 DBL_FMULS = 9  # dbl
@@ -46,6 +53,10 @@ DBL_DEPTH = 3
 # kernels' compile-time GROUP in csrc/g1.cuh, chosen by measurement on the
 # card among 2, 4 and 8 (PERF.md). A CPU test holds the two equal.
 GROUP = 4
+# Warps per block of 32 chunk lanes in B1: the kernel's compile-time
+# scan::GROUP in csrc/msm_kernels.cu, one per product of a round of the
+# mixed addition (at most 3). A CPU test holds the two equal.
+SCAN_GROUP = 3
 
 
 # ---------------------------------------------------------------------------

@@ -31,11 +31,11 @@ from .field import FP, FR
 from .g1 import G1Aff, G1XYZZ, map_coords
 
 # Chunk lanes of phase 1. The JAX package aims at 2048 (one TPU vector tile
-# set). On the card phase 1 runs one thread per lane, with the accumulator
-# in registers; 32768 lanes are 256 blocks of 128 threads, about two blocks
-# on each of the H100's 132 SMs. On the CPU the plain version does the
-# same work either way, but phase 2 scans the lanes in m log m additions,
-# so it keeps 2048. The sum does not depend on the choice.
+# set). On the card phase 1 (kernel B1) runs 32 lanes a block; 32768 lanes
+# are 1,024 blocks, one wave at the eight blocks an SM holds on the H100's
+# 132 SMs. On the CPU the plain version does the same work either way, but
+# phase 2 scans the lanes in m log m additions, so it keeps 2048. The sum
+# does not depend on the choice.
 CUDA_CHUNK_LANES = 32768
 CPU_CHUNK_LANES = 2048
 
@@ -171,7 +171,7 @@ def _chunk_layout(sorted_keys: torch.Tensor, src_sorted: torch.Tensor) -> ScanLa
     first = torch.cat([one, diff])
     last = torch.cat([diff, one])
     K = _pick_chunk(E, chunk_lanes(dev))
-    m = -(-(-(-E // K)) // 128) * 128  # lanes, a whole number of 128-thread blocks
+    m = -(-(-(-E // K)) // 128) * 128  # lanes, a multiple of 128 (four of B1's 32-lane blocks)
     pad = m * K - E
     if pad:
         # padded ranks sit at the tail; first=True isolates each in its own

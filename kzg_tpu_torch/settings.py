@@ -211,6 +211,23 @@ class TorchKZGSettings:
         return self.setup.g2_monomial
 
 
-def load_settings(path: str, device=None) -> TorchKZGSettings:
+# the repo's copy of the mainnet setup, beside this package
+_REPO_SETUP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "trusted_setup.txt")
+
+
+def trusted_setup_path() -> str:
+    """The trusted setup file to load when the caller names none, looked up
+    as the JAX package looks it up: $KZG_TPU_TRUSTED_SETUP if that file
+    exists, else the repo's tests/trusted_setup.txt. Raises
+    FileNotFoundError when neither exists."""
+    for p in (os.environ.get("KZG_TPU_TRUSTED_SETUP", ""), _REPO_SETUP):
+        if p and os.path.isfile(p):
+            return p
+    raise FileNotFoundError("trusted_setup.txt not found: set KZG_TPU_TRUSTED_SETUP or pass a path")
+
+
+def load_settings(path: Optional[str] = None, device=None) -> TorchKZGSettings:
+    """Settings from a trusted setup file (`trusted_setup_path()` when
+    `path` is None) on `device` (the card when None)."""
     dev = resolve_device(device)
-    return TorchKZGSettings(load_trusted_setup_file(path), dev)
+    return TorchKZGSettings(load_trusted_setup_file(path or trusted_setup_path()), dev)

@@ -25,7 +25,6 @@ import torch
 from . import api
 from .ops import launch
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _OURS = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel", "ntt_tile_kernel", "ntt_stage_kernel")
 N_BLOBS = 64
 N_CELL_BLOBS = 16
@@ -112,7 +111,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    s = api.load_trusted_setup_file(os.path.join(_REPO, "tests", "trusted_setup.txt"))
+    s = api.load_trusted_setup_file()
     s.lagrange_table  # built on the card (or read from the disk cache), outside the traced calls
     s.column_tables
     blobs = _blobs(N_BLOBS, SEED)

@@ -202,3 +202,36 @@ def test_addition_without_doubling_needs_its_stated_products(pairs, monkeypatch)
         used += not all(torch.equal(a, b) for a, b in zip(got, want))
     assert len(seen) == cuda_msm.ADD_FMULS
     assert used == cuda_msm.ADD_FMULS_DISTINCT == cuda_msm.ADD_FMULS - cuda_msm.DBL_FMULS
+
+
+def test_mixed_addition_without_doubling_needs_its_stated_products(pairs, monkeypatch):
+    """Of madd_unified's products, those that reach the sum of P != Q (no
+    identity operand, P != -Q) number MADD_FMULS_DISTINCT, B1's bound:
+    zeroing any one of them changes the sum, zeroing any other (the
+    doubling of the affine operand) does not."""
+    P, Q = pairs
+    keep = [i for i in range(N) if P[i] is not None and Q[i] is not None and P[i] != Q[i] and Q[i] != G1.affine_neg(P[i])]
+    pj, _ = _xyzz_pair([P[i] for i in keep], [Q[i] for i in keep])
+    tp = _t(pj)
+    qa = _t(jg.affine_from_ints(_dbl_affine([Q[i] for i in keep])))
+    want = tg.madd_unified(tp, qa)
+    real = tg._mul_many
+    seen = []
+
+    def zeroing(target):
+        def mul(pairs_):
+            out = real(pairs_)
+            first = len(seen)
+            seen.extend(range(first, first + len(out)))
+            return [torch.zeros_like(r) if first + k == target else r for k, r in enumerate(out)]
+
+        return mul
+
+    used = 0
+    for target in range(cuda_msm.MADD_FMULS):
+        seen.clear()
+        monkeypatch.setattr(tg, "_mul_many", zeroing(target))
+        got = tg.madd_unified(tp, qa)
+        used += not all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(seen) == cuda_msm.MADD_FMULS
+    assert used == cuda_msm.MADD_FMULS_DISTINCT == cuda_msm.MADD_FMULS - cuda_msm.MDBL_FMULS

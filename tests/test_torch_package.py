@@ -4,6 +4,7 @@ to, its kernel wrappers check their inputs and never fall back, its caches
 round-trip; and the kernels against their plain versions on a card
 (marked `gpu`, skipped without one)."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -55,6 +56,79 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         settings.resolve_device("cuda")
     assert settings.resolve_device("cpu") == torch.device("cpu")
+
+
+def _parameters(fn):
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+# the names both api.py modules define; test_api_shares_these_names keeps the list whole
+SHARED_API = [
+    "blob_to_kzg_commitment", "blob_to_kzg_commitment_batch", "compute_blob_kzg_proof",
+    "compute_blob_kzg_proof_batch", "compute_cells", "compute_cells_and_kzg_proofs", "compute_kzg_proof",
+    "compute_verify_cell_kzg_proof_batch_challenge", "load_trusted_setup", "load_trusted_setup_file",
+    "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch", "verify_cell_kzg_proof_batch", "verify_kzg_proof",
+]
+
+
+def test_api_shares_these_names():
+    from kzg_tpu import api as japi
+
+    shared = {
+        name for name, fn in vars(api).items()
+        if inspect.isfunction(fn) and fn.__module__ == api.__name__ and callable(getattr(japi, name, None))
+    }
+    assert shared == set(SHARED_API)
+
+
+@pytest.mark.parametrize("name", SHARED_API)
+def test_api_signature_matches_the_jax_package(name):
+    """The function takes the JAX package's parameters, in the same order,
+    with the same defaults: a keyword call that works on one package works
+    on the other. The port alone adds a trailing `device`; the JAX
+    package's trailing `mesh` (its multi-device entry points) waits for the
+    port's multi-device slice."""
+    from kzg_tpu import api as japi
+
+    port, ref = _parameters(getattr(api, name)), _parameters(getattr(japi, name))
+    if port[-1:] == [("device", None)]:
+        port = port[:-1]
+    if ref[-1:] == [("mesh", None)]:
+        ref = ref[:-1]
+    assert port == ref
+
+
+def test_setup_is_found_without_a_path(tmp_path, monkeypatch):
+    """load_trusted_setup_file() with no path loads the repo's mainnet
+    setup, through the port's own lookup."""
+    monkeypatch.delenv("KZG_TPU_TRUSTED_SETUP", raising=False)
+    s = api.load_trusted_setup_file(device="cpu")
+    assert s.device == torch.device("cpu")
+    assert len(s.setup.g1_lagrange_brp) == 4096 and len(s.setup.g1_monomial) == 4096
+    with open(SETUP) as f:
+        first_lagrange = bytes.fromhex(f.read().split()[2])
+    from kzg_tpu_torch import native
+
+    assert native.g1_compress_batch([s.setup.g1_lagrange_brp[0]]) == [first_lagrange]
+
+
+@pytest.mark.parametrize("env", ["a file", "a missing file", "a missing file, no repo setup"])
+def test_setup_lookup_order(tmp_path, monkeypatch, env):
+    """$KZG_TPU_TRUSTED_SETUP is taken when it names a file and passed over
+    when it does not, for the repo's tests/trusted_setup.txt; with neither,
+    loading raises FileNotFoundError."""
+    named = tmp_path / "setup.txt"
+    if env == "a file":
+        named.write_text("")
+    monkeypatch.setenv("KZG_TPU_TRUSTED_SETUP", str(named))
+    if env == "a file":
+        assert settings.trusted_setup_path() == str(named)
+    elif env == "a missing file":
+        assert os.path.samefile(settings.trusted_setup_path(), SETUP)
+    else:
+        monkeypatch.setattr(settings, "_REPO_SETUP", str(tmp_path / "absent.txt"))
+        with pytest.raises(FileNotFoundError, match="trusted_setup.txt not found"):
+            api.load_trusted_setup_file(device="cpu")
 
 
 def _points(n):
@@ -122,11 +196,32 @@ def test_every_launcher_has_a_signature():
 
 def test_thread_group_is_the_kernels_own():
     """The threads per point that ops/cuda_msm.py reports are the
-    compile-time GROUP of B2's and B3's kernels."""
+    compile-time GROUP of B2's and B3's kernels, and SCAN_GROUP B1's."""
     import re
 
     with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", "g1.cuh")) as f:
         assert re.findall(r"constexpr int GROUP = (\d+);", f.read()) == [str(cuda_msm.GROUP)]
+    with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", "msm_kernels.cu")) as f:
+        assert re.findall(r"constexpr int GROUP = (\d+);", f.read()) == [str(cuda_msm.SCAN_GROUP)]
+
+
+def test_kernel_variants_edit_the_sources_as_they_are():
+    """benches/kernel_variants.py rewrites the kernels' sources: each
+    constant it sets and each text it replaces is there exactly once."""
+    import re
+
+    from kzg_tpu_torch.benches import kernel_variants as kv
+
+    def text(source):
+        with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", source)) as f:
+            return f.read()
+
+    for _, source, consts in kv.VARIANTS:
+        for name in consts:
+            assert len(re.findall(rf"constexpr int {name} = \d+;", text(source))) == 1, (source, name)
+    for _, source, label, edits in kv.PARTS_OUT:
+        for old, new in edits:
+            assert text(source).count(old) == 1 and old != new, (source, label)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
@@ -272,8 +367,48 @@ def test_seg_scan_kernel_matches_plain(cuda_device):
         assert torch.equal(a.cpu(), b)
 
 
+def _scan_case(K, m, seed, dbl=None):
+    """B1's inputs on 32 points and the identity (row 32): seeded rows and
+    segment starts, a restart on the identity row (an identity sum) and
+    identity rows when K > 5, and where `dbl` names lanes, those lanes add
+    step 0's row to itself at step 1 (P == Q) while the other lanes add
+    another row."""
+    aff = g1.affine_from_ints(_points(32) + [None], "cpu")
+    rows, r0 = msm._pack_point_rows(aff.x, aff.y, aff.inf)
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 2 * r0, (K, m))
+    first = rng.random((K, m)) < 0.25
+    if K > 5:
+        idx[4, 1::5] = 32
+        first[4, 1::5] = True
+        idx[5, ::3] = 32
+    if dbl is not None:
+        idx[0, dbl] = np.where(idx[0, dbl] % r0 == 32, 7, idx[0, dbl])
+        idx[1] = (idx[0] + 1) % (2 * r0)
+        idx[1, dbl] = idx[0, dbl]
+        first[0, dbl] = True
+        first[1, dbl] = False
+    return rows, torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(first)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, n, inverse", [(5, 128, False), (3, 4096, True), (2, 8192, False)])
+@pytest.mark.parametrize("K, m, dbl", [(6, 300, None), (7, 1, None), (1, 77, None), (2, 33, None),
+                                       (6, 96, [37]), (6, 96, list(range(32, 64)))])
+def test_seg_scan_kernel_edge_cases(cuda_device, K, m, dbl):
+    """B1 at m not a multiple of its 32-lane blocks, one lane, one step;
+    one lane alone of its block with P == Q, a block where every lane has
+    it; identity rows, an identity sum after a restart, P == -Q (the
+    negated rows)."""
+    rows, idx, first = _scan_case(K, m, K * 1000 + m, dbl)
+    got = cuda_msm.seg_scan_phase1_mem(rows.to(cuda_device), idx.to(cuda_device), first.to(cuda_device))
+    ref = cuda_msm.seg_scan_phase1_mem(rows, idx, first)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, n, inverse", [(5, 128, False), (3, 4096, True), (2, 8192, False), (7, 2, False),
+                                           (5, 512, True), (3, 1024, False), (5, 2048, True)])
 def test_ntt_kernels_match_plain(cuda_device, B, n, inverse):
     x = _fr_values(B, n, seed=n)
     got = cuda_fft.ntt_tile(x.to(cuda_device), inverse)
@@ -282,6 +417,19 @@ def test_ntt_kernels_match_plain(cuda_device, B, n, inverse):
     for s in range(cuda_fft.tile_stages(n.bit_length() - 1), n.bit_length() - 1):
         got, ref = cuda_fft.ntt_stage(ref.to(cuda_device), s, inverse), cuda_fft.ntt_stage_ref(ref, s, inverse)
         assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, n, inverse", [(16, 4096, True), (16, 8192, False), (1024, 128, False)])
+def test_ntt_kernels_at_the_cells_call_shapes(cuda_device, B, n, inverse):
+    """B4 and B5 at the three transforms of one 16-blob cells call, the
+    plain version on the card."""
+    x = _fr_values(B, n, seed=B + n).to(cuda_device)
+    got, ref = cuda_fft.ntt_tile(x, inverse), cuda_fft.ntt_tile_ref(x, inverse)
+    assert torch.equal(got, ref)
+    for s in range(cuda_fft.tile_stages(n.bit_length() - 1), n.bit_length() - 1):
+        got, ref = cuda_fft.ntt_stage(ref, s, inverse), cuda_fft.ntt_stage_ref(ref, s, inverse)
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu
