@@ -22,6 +22,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
      and verify_blob_kzg_proof_batch on the 64 blobs: True; False with a
      cell changed, two proofs swapped, a proof of another blob; a
      non-canonical blob raises;
+     recovery: three of the 16 cell blobs from a seeded random 64 of their
+     cells, from cells 0-63 and from all 128 (proofs only), and one
+     recover_cells_and_kzg_proofs_batch call of two more: cells and proofs
+     byte-equal to the cells call's; 63 cells raise before any launch;
+     multiproofs: the whole monomial table (c = 13, 20 x 4096, built on
+     the card), whose commitment to a blob's monomial coefficients equals
+     blob_to_kzg_commitment; proofs of those 4096 coefficients on cosets
+     of 16 and 64 points verify, and fail with one value changed;
+     das_extension of a blob's extension's even points gives its odd ones;
      the bench path: the headline bench (kzg_tpu_torch.bench) at batch 8
      and 3 iterations with its native check, one batch-8 stage split of
      the fixed-base MSM (kzg_tpu_torch.benches.msm_stages, with kernel
@@ -248,7 +257,7 @@ def main() -> int:
     from kzg_tpu_torch.benches import gather_micro, msm_stages
     from kzg_tpu_torch.benches.common import device_ms as cuda_ms
     from kzg_tpu_torch.constants import P_MOD, R_MOD as R
-    from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, field as fl, g1, g1fft, launch, msm
+    from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, fft as fft_ops, field as fl, g1, g1fft, launch, msm
     from kzg_tpu_torch.ops.field import FP, FR
     from kzg_tpu_torch.settings import TorchKZGSettings
 
@@ -397,6 +406,136 @@ def main() -> int:
     except ValueError as e:
         check("not canonical" in str(e), f"a non-canonical blob raised {e!r}")
     log(f"blob verification: {N_BLOBS} blobs True; a proof of another blob False; a non-canonical blob raises")
+
+    # The recovery, multiproof and das_extension calls give B1, B2, B4 and
+    # B5 shapes that no earlier call gives them: the vanishing
+    # polynomial's tree of small NTTs (batch 32 at n = 4 down to batch 1
+    # at n = 128), the division's transforms of n = 2 to 8192 at batch 1,
+    # the one-blob FK20 column MSM, the MSMs on the monomial table and on
+    # its first n columns. While they run, each of those four wrappers
+    # keeps its first input of each shape; section 3 holds the kernel
+    # against its plain version on every one of them.
+    path_inputs = {name: {} for name in ("seg_scan_phase1", "add_unified", "ntt_tile", "ntt_stage")}
+
+    def shape_key(args):
+        return tuple(tuple(a.shape) if torch.is_tensor(a) else tuple(a.x.shape) if isinstance(a, tuple) else a
+                     for a in args)
+
+    class Recording:
+        """Stands in its module for a kernel wrapper: keeps the wrapper's
+        first input of each shape, then calls it. A wrapper counts its
+        launches on its module-level name, which is this object while it
+        stands in, so `launches` passes through to the wrapper."""
+
+        def __init__(self, module, attr, name):
+            self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), path_inputs[name]
+            setattr(module, attr, self)
+
+        launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
+
+        def __call__(self, *args):
+            self.seen.setdefault(shape_key(args), args)
+            return self.fn(*args)
+
+        def stop(self):
+            setattr(self.module, self.attr, self.fn)
+
+    recordings = [Recording(cuda_msm, "seg_scan_phase1_mem", "seg_scan_phase1"),
+                  Recording(cuda_msm, "add_points", "add_unified"),
+                  Recording(cuda_fft, "ntt_tile", "ntt_tile"), Recording(cuda_fft, "ntt_stage", "ntt_stage")]
+
+    # EIP-7594 recovery of three cell blobs, from a seeded random 64 of
+    # their 128 cells, from cells 0-63, and from all 128 (the proofs only);
+    # then one batch call of two blobs: the cells and proofs must equal
+    # the cells call's, whose proofs verify above. The coset powers are
+    # built first, outside the timed calls. 63 cells raise before any
+    # device work.
+    _, t_rec_consts = timed(synced(lambda: s.recovery_shift_pows))
+    log(f"recovery constants (coset powers of 7 and 1/7, 2 x 8192): {t_rec_consts:.2f} s")
+    rec_rng = np.random.default_rng(SEED + 7)
+    rec_cases = [(0, "a random 64", sorted(rec_rng.choice(128, 64, replace=False).tolist())),
+                 (1, "cells 0-63", list(range(64))), (2, "all 128", list(range(128)))]
+    recover_walls, recover_launches, recover_peaks = {}, {}, {}
+    for b, label, idx in rec_cases:
+        torch.cuda.reset_peak_memory_stats()
+        (rc, rp), counts, secs = counted_call(
+            f"recover blob {b} from {label}", lambda: api.recover_cells_and_kzg_proofs(idx, [cells[b][i] for i in idx], s)
+        )
+        recover_walls[label], recover_launches[label] = secs, counts
+        recover_peaks[label] = torch.cuda.max_memory_allocated()
+        check(rc == cells[b], f"recovered cells of blob {b} from {label} differ from the cells call's")
+        check(rp == cell_proofs[b], f"recovered proofs of blob {b} from {label} differ from the cells call's")
+        for name in ("ntt_tile", "ntt_stage", "seg_scan_phase1", "add_unified"):
+            check(counts[name] > 0, f"recover_cells_and_kzg_proofs from {label} did not launch {name}")
+    half = list(range(0, 128, 2))
+    batch_idx = [rec_cases[0][2], half]
+    (rcs, rps), counts, secs = counted_call(
+        "recover_cells_and_kzg_proofs_batch of blobs 3 and 4 (a random 64; the even cells)",
+        lambda: api.recover_cells_and_kzg_proofs_batch(batch_idx, [[cells[b][i] for i in idx] for b, idx in zip((3, 4), batch_idx)], s),
+    )
+    recover_walls["batch of 2"], recover_launches["batch of 2"] = secs, counts
+    check(rcs == [cells[3], cells[4]] and rps == [cell_proofs[3], cell_proofs[4]],
+          "the batch recovery's cells or proofs differ from the cells call's")
+    launch.reset_launches()
+    try:
+        api.recover_cells_and_kzg_proofs(list(range(63)), cells[0][:63], s)
+        raise SmokeFailure("recovery from 63 cells did not raise")
+    except ValueError as e:
+        check("not enough cells" in str(e), f"recovery from 63 cells raised {e!r}")
+    check(not any(launch.launches().values()), f"recovery from 63 cells launched {launch.launches()}")
+    log("recovery: cells and proofs of 3 blobs and a batch of 2 equal the cells call's; 63 cells raise before any launch")
+
+    # the monomial table and multiproofs: the table's commitment to blob
+    # 0's monomial coefficients is the blob's commitment; proofs of those
+    # 4096 coefficients on cosets of n = 16 and 64 points at a seeded x
+    # verify against that commitment, and fail with one value changed.
+    # The coset's values come from the port's FFT of n over the
+    # coefficients scaled by x^i and folded mod n.
+    mono, t_mono = timed(synced(lambda: s.monomial_table))
+    check(mono.c == 13 and tuple(mono.x.shape) == (24, 20, 4096), "unexpected monomial table shape")
+    log(f"monomial table build (20 x 4096, on the card): {t_mono:.2f} s")
+    raw0 = torch.from_numpy(np.frombuffer(cell_blobs[0], np.uint8).reshape(1, 4096, 32).copy()).to(dev)
+    poly0 = eip7594._cells_body(raw0)[1][:, 0]  # (16, 4096) Montgomery
+    mono_commit = eip4844._affine_to_bytes(g1.to_affine(msm.msm_fixed(mono, fl.to_canonical(FR, poly0))))[0]
+    check(mono_commit == commits[0], "the monomial table's commitment differs from blob_to_kzg_commitment")
+    coeffs0 = FR.decode(poly0)
+    x_mp = int.from_bytes(np.random.default_rng(SEED + 8).bytes(32), "big") % R
+    x_pows = torch.from_numpy(FR.encode_host([pow(x_mp, i, R) for i in range(4096)])).to(dev)
+    multi_walls, multi_launches = {}, {}
+    for n_mp in (16, 64):
+        proof_mp, counts, secs = counted_call(
+            f"compute_kzg_proof_multi n = {n_mp}", lambda: api.compute_kzg_proof_multi(coeffs0, x_mp, n_mp, s)
+        )
+        multi_walls[f"prove n = {n_mp}"], multi_launches[f"prove n = {n_mp}"] = secs, counts
+        folded = fl.sum_tree(FR, fl.mont_mul(FR, poly0, x_pows).reshape(16, -1, n_mp).transpose(1, 2))  # (16, n, 1)
+        ys = FR.decode(fft_ops.fft(folded.reshape(16, 1, n_mp)))
+        bad_ys = ys[:3] + [(ys[3] + 1) % R] + ys[4:]
+        for label, values, want in (("", ys, True), (" (one value changed)", bad_ys, False)):
+            ok, v_counts, v_secs = counted_call(
+                f"verify_kzg_proof_multi n = {n_mp}{label}",
+                lambda: api.verify_kzg_proof_multi(commits[0], proof_mp, x_mp, values, s),
+            )
+            check(ok is want, f"verify_kzg_proof_multi n = {n_mp}{label} returned {ok}")
+            if want:
+                multi_walls[f"verify n = {n_mp}"], multi_launches[f"verify n = {n_mp}"] = v_secs, v_counts
+            for name in ("seg_scan_phase1", "add_unified", "ntt_tile"):
+                check(v_counts[name] > 0, f"verify_kzg_proof_multi did not launch {name}")
+        for name in ("seg_scan_phase1", "add_unified", "ntt_tile"):
+            check(counts[name] > 0, f"compute_kzg_proof_multi did not launch {name}")
+    log("multiproofs: the monomial table commits as blob_to_kzg_commitment; proofs on cosets of 16 and 64 points "
+        "verify, and fail with one value changed")
+
+    # das_extension: the even points of blob 0's extension (natural order)
+    # give its odd points
+    wire0 = fl.from_canonical(FR, eip7594._cells_to_limbs(cells[0], dev).reshape(16, 1, -1))
+    ext0 = cuda_fft.bit_reverse(wire0)
+    odd, counts, _ = counted_call("das_extension of blob 0", lambda: fft_ops.das_extension(ext0[..., 0::2]))
+    check(torch.equal(odd, ext0[..., 1::2]), "das_extension differs from the extension's odd points")
+    for name in ("ntt_tile", "ntt_stage"):
+        check(counts[name] > 0, f"das_extension did not launch {name}")
+    log("das_extension: the even points of blob 0's extension give its odd points")
+    for rec in recordings:
+        rec.stop()
 
     # the bench path: the headline bench with its native check, one batch-8
     # stage split of the fixed-base MSM (B6 gathers its sorted rows), and
@@ -584,7 +723,13 @@ def main() -> int:
         ("fft 1024 x 3 (edge values)", random_fr(3, 1024), False),
         ("ifft 512 x 5 (edge values)", random_fr(5, 512), True),
         ("fft 2 x 7 (edge values)", random_fr(7, 2), False),
+        ("fft 8192 x 1 (edge values)", random_fr(1, 8192), False),
+        ("ifft 8192 x 1 (edge values)", random_fr(1, 8192), True),
     ]
+    # the vanishing polynomial's tree: batch x n = 32 x 4 ... 1 x 128
+    for lv in range(6):
+        B, n = 32 >> lv, 4 << lv
+        fft_cases += [(f"{'i' * inverse}fft {n} x {B} (edge values)", random_fr(B, n), inverse) for inverse in (False, True)]
     for label, x, inverse in fft_cases:
         n = x.shape[-1]
         log_n = n.bit_length() - 1
@@ -596,6 +741,29 @@ def main() -> int:
             ref = cuda_fft.ntt_stage_ref(ref, st, inverse)
             compare("ntt_stage", [got_s], [ref])
         log(f"B4/B5 {label}: exact ({log_n - cuda_fft.tile_stages(log_n)} B5 stages)")
+
+    # B1, B2, B4 and B5 on the inputs that the recovery, multiproof and
+    # das_extension calls gave them, one of each shape (recorded in
+    # section 2); plain versions on the card. The shapes named in the
+    # recording's comment must be among them.
+    mono_rows = 2 * mono.x[0].numel()
+    want = {"seg_scan_phase1": {2 * col_tables.x[0].numel(), mono_rows, mono_rows * 16 // 4096, mono_rows * 64 // 4096},
+            "ntt_tile": {((16, 32 >> lv, 4 << lv), inv) for lv in range(6) for inv in (False, True)}
+            | {((16, 1, 8192), inv) for inv in (False, True)}}
+    seen = {"seg_scan_phase1": {key[0][0] for key in path_inputs["seg_scan_phase1"]},
+            "ntt_tile": set(path_inputs["ntt_tile"])}
+    for name, keys in want.items():
+        check(keys <= seen[name], f"{name}: the recorded shapes lack {sorted(keys - seen[name])}")
+    refs = {"seg_scan_phase1": cuda_msm.seg_scan_phase1_mem_ref, "add_unified": cuda_msm.add_points_ref,
+            "ntt_tile": cuda_fft.ntt_tile_ref, "ntt_stage": cuda_fft.ntt_stage_ref}
+    for name, ref_fn in refs.items():
+        check(path_inputs[name], f"the recovery, multiproof and das_extension calls launched no {name}")
+        for args in path_inputs[name].values():
+            got, ref = launch.WRAPPERS[name](*args), ref_fn(*args)
+            compare(name, [got] if torch.is_tensor(got) else got, [ref] if torch.is_tensor(ref) else ref)
+        log(f"{name}: exact on the recovery, multiproof and das_extension calls' inputs at "
+            f"{len(path_inputs[name])} shapes: {sorted(path_inputs[name])}")
+    del path_inputs
 
     # B3 at the verify paths' shapes: the window sums of the 2048-cell
     # call's proof MSM (2 MSMs of 2048 points, c = 13, 20 windows), and of
@@ -950,6 +1118,11 @@ def main() -> int:
     for label, secs in verify_walls.items():
         log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "
             f"launches {verify_launches[label]} [{card}]")
+    for label, secs in recover_walls.items():
+        peak = f", peak device memory {recover_peaks[label] / 2**30:.2f} GiB" if label in recover_peaks else ""
+        log(f"recover {label}: {secs:.3f} s{peak}; launches {recover_launches[label]} [{card}]")
+    for label, secs in multi_walls.items():
+        log(f"multiproof {label}: {secs:.3f} s; launches {multi_launches[label]} [{card}]")
     log(f"main path launches: {main_launches}")
     log(f"peak device memory: EIP-4844 main path {peak_mem / 2**30:.2f} GiB; "
         f"EIP-7594 {N_CELL_BLOBS}-blob call {peak_mem_cells / 2**30:.2f} GiB")

@@ -1,6 +1,7 @@
 """The EIP-4844 and EIP-7594 functions under the names of the JAX
 package's api.py, on a torch device: commit, prove and verify blobs;
-compute cells and their proofs, and verify cell proofs in a batch.
+compute cells and their proofs, recover them from half the cells, and
+verify cell proofs in a batch; prove and verify multi-point openings.
 
     from kzg_tpu_torch import api as kzg
     s = kzg.load_trusted_setup_file()  # the mainnet setup, on the card
@@ -18,8 +19,10 @@ from typing import List, Optional, Sequence, Tuple
 
 from . import eip4844 as _e4
 from . import eip7594 as _e7
+from . import multiproof as _mp
 from .settings import TorchKZGSettings, load_settings, resolve_device
 from .trusted_setup import load_trusted_setup as _load_setup
+from .trusted_setup import parse_trusted_setup_string  # noqa: F401  (the JAX package's api.py exports it too)
 
 Settings = TorchKZGSettings
 
@@ -86,6 +89,18 @@ def compute_cells_and_kzg_proofs_batch(
     return _e7.compute_cells_and_kzg_proofs_batch(blobs, s, with_proofs)
 
 
+def recover_cells_and_kzg_proofs(
+    cell_indices: Sequence[int], cells: Sequence[bytes], s: Settings
+) -> Tuple[List[bytes], List[bytes]]:
+    return _e7.recover_cells_and_kzg_proofs(cell_indices, cells, s)
+
+
+def recover_cells_and_kzg_proofs_batch(
+    cell_indices_list: Sequence[Sequence[int]], cells_list: Sequence[Sequence[bytes]], s: Settings
+) -> Tuple[List[List[bytes]], List[List[bytes]]]:
+    return _e7.recover_cells_and_kzg_proofs_batch(cell_indices_list, cells_list, s)
+
+
 def verify_cell_kzg_proof_batch(
     commitments: Sequence[bytes],
     cell_indices: Sequence[int],
@@ -106,3 +121,11 @@ def compute_verify_cell_kzg_proof_batch_challenge(
     return _e7.compute_verify_cell_kzg_proof_batch_challenge(
         commitments, commitment_indices, cell_indices, cells, proofs
     )
+
+
+def compute_kzg_proof_multi(poly_coeffs: Sequence[int], x: int, n: int, s: Settings) -> bytes:
+    return _mp.compute_kzg_proof_multi(poly_coeffs, x, n, s)
+
+
+def verify_kzg_proof_multi(commitment: bytes, proof: bytes, x: int, ys: Sequence[int], s: Settings) -> bool:
+    return _mp.verify_kzg_proof_multi(commitment, proof, x, ys, s)

@@ -11,10 +11,10 @@ points (the JAX script's BENCH_NPOW has no other size to take here).
 
 Rows: g1_lincomb_4096 and fft_fr_scale15 (also pipelined: `iters` calls
 dispatched back to back, one synchronize); the five singles; the three
-64-blob rows; compute_cells_and_kzg_proofs; recover_cells_and_kzg_proofs_50pct
-(written as not ported: the port has no recover path yet);
-verify_cell_kzg_proof_batch_128; fft_g1 at each BENCH_G1FFT_POWS size,
-after a check that ifft(fft(P)) == P at the first; the variable-base MSM
+64-blob rows; compute_cells_and_kzg_proofs;
+recover_cells_and_kzg_proofs_50pct (from the even cells, as the JAX
+script); verify_cell_kzg_proof_batch_128; fft_g1 at each BENCH_G1FFT_POWS
+size, after a check that ifft(fft(P)) == P at the first; the variable-base MSM
 at each BENCH_SWEEP_POWS size, with its peak device memory. Synthetic
 points for those two are the mainnet setup's G1 points, tiled (the
 arithmetic costs the same as a real setup of that size). Every time is a
@@ -283,12 +283,11 @@ def main(argv=None) -> int:
 
     # EIP-7594 (no published reference numbers; recorded for tracking)
     tab.run("compute_cells_and_kzg_proofs", lambda: kzg.compute_cells_and_kzg_proofs(blob, s))
-    if tab.wanted("recover_cells_and_kzg_proofs_50pct"):
-        tab.results["recover_cells_and_kzg_proofs_50pct"] = {
-            "status": "not ported", "note": "the port has no recover path yet (ROADMAP A10)"}
-        tab.log(f"{'recover_cells_and_kzg_proofs_50pct':36s} not ported")
-    if tab.wanted("verify_cell_kzg_proof_batch_128"):
+    if tab.wanted("recover_cells_and_kzg_proofs_50pct") or tab.wanted("verify_cell_kzg_proof_batch_128"):
         cells, cell_proofs = kzg.compute_cells_and_kzg_proofs(blob, s)
+        half = list(range(0, 128, 2))
+        tab.run("recover_cells_and_kzg_proofs_50pct",
+                lambda: kzg.recover_cells_and_kzg_proofs(half, [cells[i] for i in half], s))
         tab.run("verify_cell_kzg_proof_batch_128", lambda: kzg.verify_cell_kzg_proof_batch(
             [commitment] * 128, list(range(128)), cells, cell_proofs, s))
 

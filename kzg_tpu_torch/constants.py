@@ -102,3 +102,7 @@ TRUSTED_SETUP_NUM_G2_POINTS = 65
 FIAT_SHAMIR_PROTOCOL_DOMAIN = b"FSBLOBVERIFY_V1_"
 RANDOM_CHALLENGE_KZG_BATCH_DOMAIN = b"RCKZGBATCH___V1_"
 RANDOM_CHALLENGE_KZG_CELL_BATCH_DOMAIN = b"RCKZGCBATCH__V1_"
+
+# Coset shift of EIP-7594 erasure recovery: the division by the vanishing
+# polynomial runs on the coset 7 * <w>, where that polynomial has no zero.
+RECOVERY_SHIFT_FACTOR = 7

@@ -1,8 +1,9 @@
-"""EIP-7594 (PeerDAS) cells, FK20 cell proofs and batch verification of
-cell proofs on a torch device.
+"""EIP-7594 (PeerDAS) cells, FK20 cell proofs, erasure recovery and
+batch verification of cell proofs on a torch device.
 
 The counterpart of the JAX package's eip7594.py for compute_cells,
-compute_cells_and_kzg_proofs and verify_cell_kzg_proof_batch. Per blob, on the settings' device and batched
+compute_cells_and_kzg_proofs, recover_cells_and_kzg_proofs and
+verify_cell_kzg_proof_batch. Per blob, on the settings' device and batched
 over blobs: byte -> limb conversion with the canonicality check, the
 Lagrange -> monomial conversion (inverse FFT of 4096), the extension (FFT of
 8192 over the zero-padded polynomial) that gives the 128 cells, and the
@@ -11,6 +12,12 @@ the column MSM (fixed-base, one table per column) and the G1 half
 convolution. The cells and the proofs share one Lagrange -> monomial
 conversion. The host does the 48-byte point codec (native core). Batches
 run in chunks of BATCH_CHUNK blobs.
+
+Recovery runs on the device, one blob at a time: the missing cells'
+vanishing polynomial (a tree of FFT products over their roots), the
+division of the known values times that polynomial by it on a coset (FFTs
+of 8192 and one batch inversion), and the FK20 proofs of the recovered
+coefficients. With all 128 cells given, only the proofs are computed.
 
 Batch verification runs on the device: the cells' byte -> limb conversion
 with the canonicality check, the proof and commitment lincombs
@@ -48,9 +55,11 @@ from .ops import msm as dmsm
 from .ops.fft import bit_reverse, fft, ifft
 from .ops.field import FR
 from .ops.g1fft import fk20_half_convolution
+from .ops.poly import vanishing_poly
 from .settings import CELL_INDICES_RBL, TorchKZGSettings
 
 N = FIELD_ELEMENTS_PER_BLOB
+N_EXT = FIELD_ELEMENTS_PER_EXT_BLOB  # 8192
 K2 = CELLS_PER_EXT_BLOB  # 128
 CELL = FIELD_ELEMENTS_PER_CELL  # 64
 # Blobs per device pass. The column MSM of one blob scans 32 x 128 x 64 =
@@ -165,6 +174,138 @@ def compute_cells_and_kzg_proofs(
     cells, proofs = compute_cells_and_kzg_proofs_batch([blob_bytes], s, with_proofs)
     return cells[0], (proofs[0] if with_proofs else [])
 
+
+
+# ---------------------------------------------------------------------------
+# Erasure recovery of cells and proofs
+# ---------------------------------------------------------------------------
+
+
+def _recover_core(cells_nat_m, missing_mask, vanish_coeff_m, shift_pows, unshift_pows):
+    """Erasure recovery of extensions (16, B, 8192) from half their values
+    or more. cells_nat_m: the values in natural domain order, Montgomery,
+    anything at the missing slots; missing_mask: (B, 8192) bool;
+    vanish_coeff_m: the coefficients of a polynomial Z that vanishes on
+    the missing slots' points and nowhere else on the domain; shift_pows,
+    unshift_pows: (16, 8192) powers k^i and k^-i of the coset shift k.
+    E Z is known everywhere (zero where E is missing), so E = (E Z) / Z,
+    divided on the coset k <w>, where Z has no zero. Returns the recovered
+    values in natural order and the coefficients, Montgomery."""
+    e_times_z = fl.mont_mul(FR, cells_nat_m, fft(vanish_coeff_m))
+    e_times_z = torch.where(missing_mask.unsqueeze(0), torch.zeros_like(e_times_z), e_times_z)
+    coeffs = ifft(e_times_z)
+
+    def coset_fft(x):
+        return fft(fl.mont_mul(FR, x, shift_pows[:, None, :]))
+
+    vinv, _ = fl.batch_inv_tree(FR, coset_fft(vanish_coeff_m))
+    quotient = fl.mont_mul(FR, coset_fft(coeffs), vinv)
+    recon_coeff = fl.mont_mul(FR, ifft(quotient), unshift_pows[:, None, :])
+    return fft(recon_coeff), recon_coeff
+
+
+def _recover_body(cells_wire, missing_cells, missing_roots, roots_valid, s: TorchKZGSettings):
+    """Recovered extensions of B blobs. cells_wire: canonical limbs (16, B,
+    8192) in wire order, anything in the missing cells; missing_cells:
+    (B, 128) bool, by cell index; missing_roots: canonical limbs (16, B,
+    64) of the missing cells' 128th roots of unity (the root of cell i is
+    w^CELL_INDICES_RBL[i]), roots_valid: (B, 64) bool (a blob may miss
+    fewer than 64 cells). Returns the canonical cells (16, B, 8192) in wire
+    order and the coefficients (16, B, 8192), Montgomery, whose top half
+    is zero for a consistent input."""
+    short = vanishing_poly(fl.from_canonical(FR, missing_roots), roots_valid)  # (16, B, 65)
+    # Z(X) = short(X^64): zero on the 64 points of each missing cell
+    vanish = short.new_zeros(short.shape[:-1] + (N_EXT,))
+    vanish[..., : (short.shape[-1] - 1) * CELL + 1 : CELL] = short
+    missing = bit_reverse(missing_cells.repeat_interleave(CELL, dim=-1))
+    natural, coeffs = _recover_core(
+        bit_reverse(fl.from_canonical(FR, cells_wire)), missing, vanish, *s.recovery_shift_pows
+    )
+    return fl.to_canonical(FR, bit_reverse(natural)), coeffs
+
+
+def _proof_bytes(poly_m: torch.Tensor, s: TorchKZGSettings) -> List[bytes]:
+    """The 128 compressed FK20 proofs of one blob's coefficients (16, 1,
+    n >= 4096), Montgomery; the coefficients above 4096 are not read."""
+    aff = dg1.to_affine(_fk20_body(poly_m[..., :N], s.column_tables))
+    return native.g1_compress_batch(dg1.affine_to_ints(aff))
+
+
+def _check_recover_inputs(cell_indices: Sequence[int], cells_bytes: Sequence[bytes]) -> np.ndarray:
+    """The JAX package's checks of recover_cells_and_kzg_proofs, with its
+    messages and in its order. Returns the cells' canonical limbs (16,
+    8192) in wire order, zero in the missing cells."""
+    if len(cells_bytes) != len(cell_indices):
+        raise ValueError("Cell indices mismatch - cells length must be equal")
+    if len(cells_bytes) > K2:
+        raise ValueError("Cell length cannot be larger than CELLS_PER_EXT_BLOB")
+    if len(cells_bytes) < K2 // 2:
+        raise ValueError("Impossible to recover - not enough cells")
+    provided = set()
+    cell_limbs = np.zeros((FR.n_limbs, N_EXT), dtype=np.int32)
+    for i, idx in enumerate(cell_indices):
+        if idx >= K2:
+            raise ValueError(f"Invalid cell index {idx}")
+        if i + 1 < len(cell_indices) and cell_indices[i + 1] <= idx:
+            raise ValueError("Invalid cell indices: must be strictly ascending")
+        if idx in provided:
+            raise ValueError(f"Invalid cell indices: cell index {idx} appears twice")
+        provided.add(idx)
+        if len(cells_bytes[i]) != BYTES_PER_CELL:
+            raise ValueError("Invalid cell length")
+        limbs, ok = bs.frs_from_bytes(cells_bytes[i])
+        if not ok.all():
+            raise ValueError("Invalid cell: scalar not canonical")
+        cell_limbs[:, idx * CELL : (idx + 1) * CELL] = limbs
+    return cell_limbs
+
+
+def _recover_inputs(cell_indices: Sequence[int], cell_limbs: np.ndarray, device):
+    """The inputs of _recover_body for one blob (B = 1) given its cells."""
+    missing = np.ones(K2, dtype=bool)
+    missing[list(cell_indices)] = False
+    w128 = root_of_unity(K2.bit_length() - 1)
+    roots = [pow(w128, CELL_INDICES_RBL[i], R) for i in np.flatnonzero(missing)]
+    valid = np.zeros(K2 // 2, dtype=bool)
+    valid[: len(roots)] = True
+    roots += [0] * (K2 // 2 - len(roots))
+    return (
+        torch.from_numpy(cell_limbs[:, None, :]).to(device),
+        torch.from_numpy(missing[None]).to(device),
+        torch.from_numpy(fl.ints_to_limbs(roots, FR.n_limbs)[:, None, :]).to(device),
+        torch.from_numpy(valid[None]).to(device),
+    )
+
+
+def recover_cells_and_kzg_proofs(
+    cell_indices: Sequence[int], cells_bytes: Sequence[bytes], s: TorchKZGSettings
+) -> Tuple[List[bytes], List[bytes]]:
+    """All 128 cells of an extended blob and their proofs, from at least
+    64 of its cells (strictly ascending indices). With all 128 given, only
+    the proofs are computed (from the cells' coefficients, one inverse FFT
+    of 8192)."""
+    cell_limbs = _check_recover_inputs(cell_indices, cells_bytes)
+    if len(cell_indices) == K2:
+        wire_m = fl.from_canonical(FR, torch.from_numpy(cell_limbs[:, None, :]).to(s.device))
+        return list(cells_bytes), _proof_bytes(ifft(bit_reverse(wire_m)), s)
+    cells, coeffs = _recover_body(*_recover_inputs(cell_indices, cell_limbs, s.device), s)
+    wire = bs.frs_to_bytes(cells[:, 0, :].cpu().numpy())
+    out_cells = [wire[i * BYTES_PER_CELL : (i + 1) * BYTES_PER_CELL] for i in range(K2)]
+    return out_cells, _proof_bytes(coeffs, s)
+
+
+def recover_cells_and_kzg_proofs_batch(
+    cell_indices_list: Sequence[Sequence[int]], cells_list: Sequence[Sequence[bytes]], s: TorchKZGSettings
+) -> Tuple[List[List[bytes]], List[List[bytes]]]:
+    """recover_cells_and_kzg_proofs of each blob, one after another."""
+    if len(cell_indices_list) != len(cells_list):
+        raise ValueError("Cell indices & cells mismatch")
+    out_cells, out_proofs = [], []
+    for idxs, cells in zip(cell_indices_list, cells_list):
+        c, p = recover_cells_and_kzg_proofs(idxs, cells, s)
+        out_cells.append(c)
+        out_proofs.append(p)
+    return out_cells, out_proofs
 
 
 # ---------------------------------------------------------------------------

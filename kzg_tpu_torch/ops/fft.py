@@ -35,3 +35,12 @@ def fft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 
 def ifft(x: torch.Tensor) -> torch.Tensor:
     return fft(x, inverse=True)
+
+
+def das_extension(evens: torch.Tensor) -> torch.Tensor:
+    """The erasure-coding extension: given the values (16, *batch, n) of a
+    polynomial of degree < n on the n-domain (the even points of the
+    2n-domain), its values on the odd points of the 2n-domain."""
+    coeffs = ifft(evens)
+    full = fft(torch.cat([coeffs, torch.zeros_like(coeffs)], dim=-1))
+    return full[..., 1::2]

@@ -1,9 +1,10 @@
-"""KZG settings on a torch device: the fixed-base MSM table of the
-bit-reversed Lagrange setup, the FK20 column points and tables, and the
-table of the first 64 monomial setup points (each built on the device,
-cached on disk); the bit-reversed roots of unity and the cell verifier's
-inverse coset-shift powers in Montgomery form; beside the host-side setup
-points (G2 points for the pairing checks).
+"""KZG settings on a torch device: the fixed-base MSM tables of the
+bit-reversed Lagrange setup, of the monomial setup and of its first 64
+points, and the FK20 column points and tables (each built on the device,
+cached on disk); the bit-reversed roots of unity, the cell verifier's
+inverse coset-shift powers and erasure recovery's coset powers in
+Montgomery form; beside the host-side setup points (G2 points for the
+pairing checks).
 
 Entry points run on the card unless the caller names another device: with
 no device given and no card present, `resolve_device` raises.
@@ -13,7 +14,7 @@ import hashlib
 import os
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from .constants import (
     FIELD_ELEMENTS_PER_CELL,
     FIELD_ELEMENTS_PER_EXT_BLOB,
     R_MOD,
+    RECOVERY_SHIFT_FACTOR,
     root_of_unity,
 )
 from .ops import g1 as dg1
@@ -194,6 +196,22 @@ class TorchKZGSettings:
                 acc = acc * inv_factor % R_MOD
         shape = (FR.n_limbs, CELLS_PER_EXT_BLOB, FIELD_ELEMENTS_PER_CELL)
         return torch.from_numpy(FR.encode_host(vals).reshape(shape)).to(self.device)
+
+    @cached_property
+    def recovery_shift_pows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Erasure recovery's coset powers, Montgomery form, (16, 8192)
+        each: k^i and k^-i for i < 8192, k = RECOVERY_SHIFT_FACTOR."""
+        n_ext = FIELD_ELEMENTS_PER_EXT_BLOB
+        k = RECOVERY_SHIFT_FACTOR
+        k_inv = pow(k, R_MOD - 2, R_MOD)
+        return tuple(FR.encode([pow(f, i, R_MOD) for i in range(n_ext)], self.device) for f in (k, k_inv))
+
+    @cached_property
+    def monomial_table(self) -> dmsm.FixedBaseTable:
+        """Fixed-base table over the whole monomial setup, the base of
+        monomial-form commitments (multiproofs): c = 13, 20 x 4096 on the
+        mainnet setup. Built on the device, cached on disk."""
+        return build_table_cached(self.setup.g1_monomial, "monomial", self.device)
 
     @cached_property
     def monomial64_table(self) -> dmsm.FixedBaseTable:

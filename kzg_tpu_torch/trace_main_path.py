@@ -4,9 +4,11 @@
 
 Loads the mainnet setup on the card and its tables, runs one warm commit
 and prove of 64 seeded random blobs, one warm EIP-7594 cells-and-proofs
-call of 16 of them, and one warm verification of each kind (all 2048 cells
-of the 16 blobs, the 64 blobs; as chip_smoke.py), then traces one more of
-each, and a verification of 8 columns of the 16 blobs, with torch.profiler (CPU and CUDA activities) and prints, per call:
+call of 16 of them, one warm recovery of the first of them from its even
+cells (50%), and one warm verification of each kind (all 2048 cells of the
+16 blobs, the 64 blobs; as chip_smoke.py), then traces one more of each,
+and a verification of 8 columns of the 16 blobs, with torch.profiler (CPU
+and CUDA activities) and prints, per call:
 the wall time, the summed time of device kernels and its share of the
 wall time (the rest is the device idle), the peak device memory, each
 hand-written kernel's time and launches, and the device kernels that take
@@ -124,6 +126,12 @@ def main() -> int:
         [c for row in cells for c in row],
         [p for row in proofs for p in row],
     )
+    half = list(range(0, 128, 2))
+    half_cells = [cells[0][i] for i in half]
+    s.recovery_shift_pows  # built once, outside the traced calls
+    if api.recover_cells_and_kzg_proofs(half, half_cells, s) != (cells[0], proofs[0]):
+        print("trace_main_path: recovery of valid cells differs from the cells call", file=sys.stderr)
+        return 1
     if not (api.verify_cell_kzg_proof_batch(*cell_args, s) and api.verify_blob_kzg_proof_batch(blobs, commits, blob_proofs, s)):
         print("trace_main_path: a verification of valid inputs returned False", file=sys.stderr)
         return 1
@@ -134,6 +142,7 @@ def main() -> int:
         f"cells and proofs of {N_CELL_BLOBS} blobs",
         lambda: api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s),
     )
+    _trace("recover blob 0 from its even cells (50%)", lambda: api.recover_cells_and_kzg_proofs(half, half_cells, s))
     sampled = [b * 128 + j for b in range(N_CELL_BLOBS) for j in range(0, 128, 128 // N_SAMPLE_COLUMNS)]
     sample_args = tuple([v[i] for i in sampled] for v in cell_args)
     _trace(f"verify {len(cell_args[0])} cells", lambda: api.verify_cell_kzg_proof_batch(*cell_args, s))

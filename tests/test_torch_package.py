@@ -32,6 +32,8 @@ import kzg_tpu_torch
 for m in pkgutil.walk_packages(kzg_tpu_torch.__path__, "kzg_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for m in ("kzg_tpu_torch.ops.poly", "kzg_tpu_torch.multiproof"):
+    assert m in sys.modules, m
 bad = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith(("jax.", "kzg_tpu.")))]
 assert not bad, bad
 print("ok")
@@ -68,6 +70,8 @@ SHARED_API = [
     "compute_blob_kzg_proof_batch", "compute_cells", "compute_cells_and_kzg_proofs", "compute_kzg_proof",
     "compute_verify_cell_kzg_proof_batch_challenge", "load_trusted_setup", "load_trusted_setup_file",
     "verify_blob_kzg_proof", "verify_blob_kzg_proof_batch", "verify_cell_kzg_proof_batch", "verify_kzg_proof",
+    "recover_cells_and_kzg_proofs", "recover_cells_and_kzg_proofs_batch", "compute_kzg_proof_multi",
+    "verify_kzg_proof_multi",
 ]
 
 
@@ -79,6 +83,21 @@ def test_api_shares_these_names():
         if inspect.isfunction(fn) and fn.__module__ == api.__name__ and callable(getattr(japi, name, None))
     }
     assert shared == set(SHARED_API)
+
+
+def test_api_has_every_public_name_of_the_jax_package():
+    """Every public function the JAX package's api.py offers, defined there
+    or imported into it, the port's api.py offers too."""
+    from kzg_tpu import api as japi
+
+    public = {
+        name for name, fn in vars(japi).items()
+        if not name.startswith("_") and inspect.isfunction(fn)
+    }
+    assert public - set(vars(api)) == set()
+    with open(SETUP) as f:
+        contents = f.read()
+    assert api.parse_trusted_setup_string(contents) == japi.parse_trusted_setup_string(contents)
 
 
 @pytest.mark.parametrize("name", SHARED_API)
