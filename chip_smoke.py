@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero, and the result line is not printed):
   1. card and builds: the card's name and power limit, torch and CUDA
      versions; build the CUDA kernels (one nvcc per source; registers and
-     spills printed, and B1, B2 and B3 must not spill) and the native host
-     core, all at the same time;
+     spills printed, and B1, B2 and B3 must not spill), the native host
+     core and the C ABI (the embedded-interpreter shim and the C test
+     program), all at the same time;
   2. the main paths at full protocol width, through the public API, with
      the kernels' launch counts zeroed before each call and read after it:
      EIP-4844: load the mainnet setup on the card, found with no path
@@ -35,6 +36,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
      and 3 iterations with its native check, one batch-8 stage split of
      the fixed-base MSM (kzg_tpu_torch.benches.msm_stages, with kernel
      B6's gather) and the gather probe's B6 call;
+     legacy FK20: multi at n2 = 8192 over blob 0's monomial coefficients
+     at chunk_len 64 (the cells layout: its files are the cells call's
+     column points, its proofs the cells call's) and 16 (k2 = 512), single
+     at n2 = 1024 (k2 = 1024): proofs verify through
+     verify_kzg_proof_multi and verify_kzg_proof, and fail with a value
+     changed;
+     the C ABI: a commitment and a cells call through the ctypes structs
+     (equal to the API's), then the repository's C test program
+     (native/test_c_abi.c, unmodified) linked against the shim, run on the
+     mainnet setup in a process of its own: ALL C ABI TESTS PASSED;
   3. each kernel against its plain PyTorch version, limb for limb, at the
      main paths' shapes (kernel on the card, plain version on a CPU copy
      or on the card) and on edge cases (B1, B2, B3: identity operands,
@@ -48,7 +59,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
      with one doubling lane in a 32-lane block and a block where every
      lane doubles; B3 at the verify paths' shapes (the proof MSM: 1 and 2 MSMs,
      c = 13, 20 windows; the commitment MSM: c = 8, 32 windows), one
-     window, c = 1, and at 1024 lanes;
+     window, c = 1, and at 1024 lanes; B1, B2, B4 and B5 on the first
+     input of each shape that the recovery, multiproof and das_extension
+     calls gave them, and B2 and B4 on those of the legacy FK20 calls (the
+     half convolutions' 8,320, 131,584 and 525,312 lanes, the chunk
+     files' transforms 64 x 128, 16 x 512 and 1 x 1024), recorded while
+     the calls ran;
      B6 word for word at the probe's shape, at the MSM's (batch 8, 25-word
      rows) and on edge cases (first and last rows, repeated indices, a
      ragged count, widths 24 and 25, an unaligned table), and an index out
@@ -123,9 +139,10 @@ def timed(fn):
 
 
 def build_all():
-    """nvcc for the kernels (one process per source) and g++ for the
-    native core, started together."""
-    from kzg_tpu_torch import kernels, native
+    """nvcc for the kernels (one process per source), g++ for the native
+    core and g++ and gcc for the C ABI (the shim and the C test program),
+    started together."""
+    from kzg_tpu_torch import c_abi_build, kernels, native
 
     results = {}
 
@@ -139,6 +156,7 @@ def build_all():
     threads = [
         threading.Thread(target=run, args=("kernels", kernels.build)),
         threading.Thread(target=run, args=("native", native.build)),
+        threading.Thread(target=run, args=("C ABI", c_abi_build.build)),
     ]
     for t in threads:
         t.start()
@@ -253,7 +271,7 @@ def main() -> int:
     sys.path.insert(0, repo)
     import numpy as np
 
-    from kzg_tpu_torch import api, bench, eip4844, eip7594, native, settings, trusted_setup
+    from kzg_tpu_torch import api, bench, c_abi, c_abi_build, eip4844, eip7594, fk20, native, settings, trusted_setup
     from kzg_tpu_torch.benches import gather_micro, msm_stages
     from kzg_tpu_torch.benches.common import device_ms as cuda_ms
     from kzg_tpu_torch.constants import P_MOD, R_MOD as R
@@ -427,8 +445,8 @@ def main() -> int:
         launches on its module-level name, which is this object while it
         stands in, so `launches` passes through to the wrapper."""
 
-        def __init__(self, module, attr, name):
-            self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), path_inputs[name]
+        def __init__(self, module, attr, seen):
+            self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), seen
             setattr(module, attr, self)
 
         launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
@@ -440,9 +458,10 @@ def main() -> int:
         def stop(self):
             setattr(self.module, self.attr, self.fn)
 
-    recordings = [Recording(cuda_msm, "seg_scan_phase1_mem", "seg_scan_phase1"),
-                  Recording(cuda_msm, "add_points", "add_unified"),
-                  Recording(cuda_fft, "ntt_tile", "ntt_tile"), Recording(cuda_fft, "ntt_stage", "ntt_stage")]
+    recordings = [Recording(cuda_msm, "seg_scan_phase1_mem", path_inputs["seg_scan_phase1"]),
+                  Recording(cuda_msm, "add_points", path_inputs["add_unified"]),
+                  Recording(cuda_fft, "ntt_tile", path_inputs["ntt_tile"]),
+                  Recording(cuda_fft, "ntt_stage", path_inputs["ntt_stage"])]
 
     # EIP-7594 recovery of three cell blobs, from a seeded random 64 of
     # their 128 cells, from cells 0-63, and from all 128 (the proofs only);
@@ -558,6 +577,93 @@ def main() -> int:
     probe = gather_micro.make_probe(dev)
     probe_out, counts, _ = counted_call("gather probe B6 call", lambda: gather_micro.dg(probe))
     check(counts["gather_rows"] == 1, f"the gather probe launched {counts}")
+
+    # legacy FK20 (the chunked-proof API) on the mainnet setup: multi at n2
+    # = 8192 over blob 0's 4096 monomial coefficients, at the cells layout
+    # (chunk_len 64: its files are the cells call's column tensor, and its
+    # proofs are the cells call's proofs of blob 0, in the same order) and
+    # at chunk_len 16 (k2 = 512: 16 files of 512, built on the card and
+    # cached); single at n2 = 1024 over the first 512 coefficients (k2 =
+    # 1024, the widest single whose half convolution, 525,312 lanes, stays
+    # within 4x the cells call's 133,120). Proofs are checked through
+    # verify_kzg_proof_multi and verify_kzg_proof (True; False with a value
+    # changed). While these calls run, B2 and B4 keep their first input of
+    # each shape for section 3.
+    legacy_inputs = {"add_unified": {}, "ntt_tile": {}}
+    recordings = [Recording(cuda_msm, "add_points", legacy_inputs["add_unified"]),
+                  Recording(cuda_fft, "ntt_tile", legacy_inputs["ntt_tile"])]
+    legacy_walls, legacy_launches = {}, {}
+    ext0 = [int.from_bytes(c[32 * i : 32 * i + 32], "big") for c in cells[0] for i in range(64)]  # brp order
+
+    def brp(i, n):
+        bits = n.bit_length() - 1
+        return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+    def legacy_call(label, make, coeffs):
+        fk, counts, secs = counted_call(f"legacy FK20 {label}: settings", make)
+        legacy_walls[f"{label} settings"], legacy_launches[f"{label} settings"] = secs, counts
+        out, counts, secs = counted_call(f"legacy FK20 {label}: data_availability", lambda: fk.data_availability(coeffs))
+        legacy_walls[label], legacy_launches[label] = secs, counts
+        for name in ("add_unified", "ntt_tile"):
+            check(counts[name] > 0, f"legacy FK20 {label} did not launch {name}")
+        return fk, native.g1_compress_batch(out)
+
+    for chunk_len, positions in ((64, (0, 77, 127)), (16, (0, 1, 300, 511))):
+        label = f"multi n2 = 8192, chunk_len {chunk_len}"
+        fk, proofs_l = legacy_call(label, lambda: fk20.FK20MultiSettings(s, 8192, chunk_len), coeffs0)
+        k2 = 8192 // chunk_len
+        check(len(proofs_l) == k2, f"legacy FK20 {label} gave {len(proofs_l)} proofs")
+        if chunk_len == 64:
+            check(fk._cols is s.x_ext_fft_columns, "legacy FK20 at the cells layout built its files again")
+            check(proofs_l == cell_proofs[0], "legacy FK20 at the cells layout differs from the cells call's proofs")
+        for pos in positions:
+            x = s.roots_of_unity[brp(pos, k2)]
+            ys = trusted_setup.reverse_bit_order(ext0[chunk_len * pos : chunk_len * (pos + 1)])
+            check(api.verify_kzg_proof_multi(commits[0], proofs_l[pos], x, ys, s) is True,
+                  f"legacy FK20 {label}: proof {pos} fails verify_kzg_proof_multi")
+        ys[3] = (ys[3] + 1) % R
+        check(api.verify_kzg_proof_multi(commits[0], proofs_l[pos], x, ys, s) is False,
+              f"legacy FK20 {label}: proof {pos} passes with a value changed")
+        log(f"legacy FK20 {label}: {k2} proofs; {len(positions)} verify, a changed value fails"
+            + ("; the proofs equal the cells call's, in the same order" if chunk_len == 64 else ""))
+    coeffs1 = coeffs0[:512]
+    c1 = eip4844._affine_to_bytes(g1.to_affine(msm.msm_fixed(
+        mono, torch.from_numpy(fl.ints_to_limbs(coeffs1 + [0] * 3584, 16)).to(dev))))[0]
+    _, proofs_1 = legacy_call("single n2 = 1024", lambda: fk20.FK20SingleSettings(s, 1024), coeffs1)
+    check(len(proofs_1) == 1024, f"legacy FK20 single gave {len(proofs_1)} proofs")
+    for i in (0, 1, 500, 1023):
+        x = s.roots_of_unity[8 * i]  # the 1024th roots in the 8192 domain
+        y = 0
+        for a in reversed(coeffs1):
+            y = (y * x + a) % R
+        args = (x.to_bytes(32, "big"), y.to_bytes(32, "big"), proofs_1[brp(i, 1024)])
+        check(api.verify_kzg_proof(c1, *args, s) is True, f"legacy FK20 single: proof {i} fails verify_kzg_proof")
+    check(api.verify_kzg_proof(c1, args[0], ((y + 1) % R).to_bytes(32, "big"), args[2], s) is False,
+          "legacy FK20 single: a proof passes with its value changed")
+    log("legacy FK20 single n2 = 1024: 1024 proofs; 4 verify, a changed value fails")
+    for rec in recordings:
+        rec.stop()
+
+    # the C ABI through ctypes (one commitment and one cells call, equal to
+    # the API's), then the repository's C test program, unmodified, linked
+    # against the shim, in a process of its own: its embedded interpreter
+    # runs kzg_tpu_torch.c_abi_host on the card, reading the tables cached
+    # above
+    blob_c = c_abi._fill(c_abi.Blob, cell_blobs[0])
+    (ret, com), counts, _ = counted_call("c_abi.blob_to_kzg_commitment", lambda: c_abi.blob_to_kzg_commitment(blob_c, s))
+    check(ret == c_abi.CKzgRet.OK and bytes(com.bytes) == commits[0], f"c_abi.blob_to_kzg_commitment: {ret}")
+    (ret, cl, pr), counts, _ = counted_call("c_abi.compute_cells_and_kzg_proofs",
+                                            lambda: c_abi.compute_cells_and_kzg_proofs(blob_c, s))
+    check(ret == c_abi.CKzgRet.OK and [bytes(c.bytes) for c in cl] == cells[0]
+          and [bytes(p.bytes) for p in pr] == cell_proofs[0], f"c_abi.compute_cells_and_kzg_proofs: {ret}")
+    log("c_abi: a commitment and a cells call through the ctypes structs equal the API's")
+    torch.cuda.empty_cache()
+    c_prog, t_c_prog = timed(lambda: c_abi_build.run_test_program(setup_path, timeout=900))
+    n_ok = c_prog.stdout.count("\nok: ") + c_prog.stdout.startswith("ok: ")
+    check(c_prog.returncode == 0 and "ALL C ABI TESTS PASSED" in c_prog.stdout,
+          f"test_c_abi exited {c_prog.returncode}:\n{c_prog.stdout[-3000:]}\n{c_prog.stderr[-3000:]}")
+    log(f"C ABI: {os.path.relpath(c_abi_build.build_dir(), repo)}/test_c_abi {os.path.relpath(setup_path, repo)}: "
+        f"{n_ok} checks ok, ALL C ABI TESTS PASSED; wall {t_c_prog:.1f} s [{card}]")
 
     # ---- 3. kernels against their plain versions -------------------------
     max_err = {name: 0 for name in launch.WRAPPERS}
@@ -764,6 +870,23 @@ def main() -> int:
         log(f"{name}: exact on the recovery, multiproof and das_extension calls' inputs at "
             f"{len(path_inputs[name])} shapes: {sorted(path_inputs[name])}")
     del path_inputs
+
+    # B2 and B4 on the legacy FK20 calls' inputs (recorded in section 2),
+    # plain versions on the card: the half convolutions' 8,320, 131,584 and
+    # 525,312 lanes and the chunk files' transforms among them
+    want_lanes = {128 * 65, 512 * 257, 1024 * 513}
+    seen_lanes = {key[0][1] for key in legacy_inputs["add_unified"]}
+    check(want_lanes <= seen_lanes, f"add_unified: the legacy calls' lanes lack {sorted(want_lanes - seen_lanes)}")
+    want_ntt = {((16, 64, 128), False), ((16, 16, 512), False), ((16, 1, 1024), False)}
+    check(want_ntt <= set(legacy_inputs["ntt_tile"]), f"ntt_tile: the legacy calls' shapes lack "
+          f"{sorted(want_ntt - set(legacy_inputs['ntt_tile']))}")
+    for name in ("add_unified", "ntt_tile"):
+        for args in legacy_inputs[name].values():
+            got, ref = launch.WRAPPERS[name](*args), refs[name](*args)
+            compare(name, [got] if torch.is_tensor(got) else got, [ref] if torch.is_tensor(ref) else ref)
+        log(f"{name}: exact on the legacy FK20 calls' inputs at {len(legacy_inputs[name])} shapes: "
+            f"{sorted(legacy_inputs[name])}")
+    del legacy_inputs
 
     # B3 at the verify paths' shapes: the window sums of the 2048-cell
     # call's proof MSM (2 MSMs of 2048 points, c = 13, 20 windows), and of
@@ -1123,6 +1246,9 @@ def main() -> int:
         log(f"recover {label}: {secs:.3f} s{peak}; launches {recover_launches[label]} [{card}]")
     for label, secs in multi_walls.items():
         log(f"multiproof {label}: {secs:.3f} s; launches {multi_launches[label]} [{card}]")
+    for label, secs in legacy_walls.items():
+        log(f"legacy FK20 {label}: {secs:.3f} s; launches {legacy_launches[label]} [{card}]")
+    log(f"C ABI test program: {t_c_prog:.1f} s [{card}]")
     log(f"main path launches: {main_launches}")
     log(f"peak device memory: EIP-4844 main path {peak_mem / 2**30:.2f} GiB; "
         f"EIP-7594 {N_CELL_BLOBS}-blob call {peak_mem_cells / 2**30:.2f} GiB")

@@ -425,6 +425,8 @@ def mul_many(spec: FieldSpec, pairs):
     if len(pairs) == 1:
         return [mont_mul(spec, *pairs[0])]
     shape = _broadcast(*[t.shape for pair in pairs for t in pair])
+    if _int_path(pairs[0][0], shape):  # narrow CPU batches: each product on Python ints
+        return [mont_mul(spec, a, b) for a, b in pairs]
     if len(shape) == 1:  # no batch axis to stack along
         out = mul_many(spec, [(a.expand(shape)[:, None], b.expand(shape)[:, None]) for a, b in pairs])
         return [o[:, 0] for o in out]

@@ -1,10 +1,12 @@
 """KZG settings on a torch device: the fixed-base MSM tables of the
 bit-reversed Lagrange setup, of the monomial setup and of its first 64
-points, and the FK20 column points and tables (each built on the device,
-cached on disk); the bit-reversed roots of unity, the cell verifier's
-inverse coset-shift powers and erasure recovery's coset powers in
-Montgomery form; beside the host-side setup points (G2 points for the
-pairing checks).
+points, the FK20 column points and tables, and the legacy FK20 settings'
+files at any (n2, chunk_len) (each built on the device, cached on disk);
+the bit-reversed roots of unity, the cell verifier's inverse coset-shift
+powers and erasure recovery's coset powers in Montgomery form; beside the
+host-side setup points (G2 points for the pairing checks) and the roots
+of unity of the setup's FFT domain (max_width) as Python ints, in the
+three orders of the C ABI's settings arrays.
 
 Entry points run on the card unless the caller names another device: with
 no device given and no card present, `resolve_device` raises.
@@ -14,7 +16,7 @@ import hashlib
 import os
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,32 +113,37 @@ def build_table_cached(points, tag: str, device: torch.device, c: Optional[int] 
     return dmsm.FixedBaseTable(*_xyinf_cached(table_cache_path(points, tag, c), build, device), c)
 
 
-def build_x_ext_fft_columns(g1_monomial, cell: int, device: torch.device) -> dg1.G1Aff:
-    """The FK20 column points over the monomial setup (n points): for each
-    of the `cell` offsets, the G1 FFT of length 2k (k = n / cell) of
-    [g1[n - cell - 1 - offset - i cell] for i < k - 1] followed by k + 1
-    infinities; column i holds entry i of every offset's FFT. All offsets
-    go through one batched fft_g1 on `device`. Returns affine points
-    (24, 2k, cell)."""
-    n = len(g1_monomial)
-    k = n // cell
+def build_x_ext_fft_columns(g1_monomial, n2: int, chunk_len: int, device: torch.device) -> dg1.G1Aff:
+    """FK20's toeplitz_part_1 files for polynomials of n = n2 / 2
+    coefficients in chunks of chunk_len (k = n / chunk_len chunks): for
+    each offset < chunk_len, the G1 FFT of length 2k of [g1[n - chunk_len -
+    1 - offset - i chunk_len] for i < k - 1] followed by k + 1 infinities;
+    column i holds entry i of every offset's FFT. All offsets go through
+    one batched fft_g1 on `device`. Returns affine points (24, 2k,
+    chunk_len). The cells call's columns are the case n2 = 2 * (setup
+    points), chunk_len = cell size."""
+    n = n2 // 2
+    k = n // chunk_len
     pts = []
-    for offset in range(cell):
-        start = n - cell - 1 - offset
-        pts += [g1_monomial[start - i * cell] for i in range(k - 1)] + [None] * (k + 1)
+    for offset in range(chunk_len):
+        start = n - chunk_len - 1 - offset
+        pts += [g1_monomial[start - i * chunk_len] for i in range(k - 1)] + [None] * (k + 1)
     aff = dg1.affine_from_ints(pts, device)
-    rows = dg1.from_affine(dg1.G1Aff(*(t.reshape(t.shape[:-1] + (cell, 2 * k)) for t in aff)))
-    ext = g1fft.fft_g1(rows)  # (24, cell, 2k)
+    rows = dg1.from_affine(dg1.G1Aff(*(t.reshape(t.shape[:-1] + (chunk_len, 2 * k)) for t in aff)))
+    ext = g1fft.fft_g1(rows)  # (24, chunk_len, 2k)
     return dg1.to_affine(dg1.map_coords(lambda t: t.transpose(-1, -2).contiguous(), ext))
 
 
 @dataclass
 class TorchKZGSettings:
     """Trusted setup on one torch device: the EIP-4844 tables and the
-    EIP-7594 (FK20) column tables, each built on first use."""
+    EIP-7594 (FK20) column tables, each built on first use. max_width is
+    the width of the setup's FFT domain: 8192 on the mainnet setup, 2^scale
+    on a test setup made from a secret."""
 
     setup: TrustedSetup
     device: torch.device
+    max_width: int = FIELD_ELEMENTS_PER_EXT_BLOB
 
     @property
     def cell_size(self) -> int:
@@ -158,9 +165,25 @@ class TorchKZGSettings:
         g1m = self.setup.g1_monomial
 
         def build():
-            return build_x_ext_fft_columns(g1m, self.cell_size, self.device)
+            return build_x_ext_fft_columns(g1m, 2 * len(g1m), self.cell_size, self.device)
 
         path = table_cache_path(g1m, "x_ext_fft_columns", 0)
+        return dg1.G1Aff(*_xyinf_cached(path, build, self.device))
+
+    def fk20_columns(self, n2: int, chunk_len: int) -> dg1.G1Aff:
+        """The legacy FK20 files at (n2, chunk_len), affine (24, n2 /
+        chunk_len, chunk_len), built on the device and cached on disk per
+        (n2, chunk_len). At the cells call's case (n2 twice the setup's
+        points, chunk_len the cell size) they are x_ext_fft_columns, and
+        that tensor is returned."""
+        g1m = self.setup.g1_monomial
+        if (n2, chunk_len) == (2 * len(g1m), self.cell_size):
+            return self.x_ext_fft_columns
+
+        def build():
+            return build_x_ext_fft_columns(g1m, n2, chunk_len, self.device)
+
+        path = table_cache_path(g1m, f"fk20_columns.{n2}", chunk_len)
         return dg1.G1Aff(*_xyinf_cached(path, build, self.device))
 
     @cached_property
@@ -173,6 +196,26 @@ class TorchKZGSettings:
 
         path = table_cache_path(self.setup.g1_monomial, "x_ext_columns", COLUMN_WINDOW)
         return dmsm.FixedBaseTable(*_xyinf_cached(path, build, self.device), COLUMN_WINDOW)
+
+    @cached_property
+    def roots_of_unity(self) -> List[int]:
+        """w^0 .. w^max_width for w the primitive max_width-th root of
+        unity: max_width + 1 values, natural order, the last one 1."""
+        w = root_of_unity(self.max_width.bit_length() - 1)
+        roots = [1]
+        for _ in range(self.max_width):
+            roots.append(roots[-1] * w % R_MOD)
+        return roots
+
+    @cached_property
+    def brp_roots_of_unity(self) -> List[int]:
+        """The first max_width roots_of_unity in bit-reversed order."""
+        return reverse_bit_order(self.roots_of_unity[:-1])
+
+    @cached_property
+    def reverse_roots_of_unity(self) -> List[int]:
+        """roots_of_unity in reverse order (max_width + 1 values)."""
+        return self.roots_of_unity[::-1]
 
     @cached_property
     def roots_brp_mont(self) -> torch.Tensor:

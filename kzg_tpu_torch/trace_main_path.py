@@ -1,6 +1,6 @@
 """Where the time of the main paths goes, on one card.
 
-    python -m kzg_tpu_torch.trace_main_path
+    python -m kzg_tpu_torch.trace_main_path [legacy]
 
 Loads the mainnet setup on the card and its tables, runs one warm commit
 and prove of 64 seeded random blobs, one warm EIP-7594 cells-and-proofs
@@ -13,8 +13,12 @@ the wall time, the summed time of device kernels and its share of the
 wall time (the rest is the device idle), the peak device memory, each
 hand-written kernel's time and launches, and the device kernels that take
 the most time. Then it runs each verification once more under cProfile
-and prints the package's host functions that take the most time. Exits
-non-zero without a card.
+and prints the package's host functions that take the most time. Last,
+the legacy FK20 calls of chip_smoke.py (multi at n2 = 8192 with
+chunk_len 64 and 16, single at n2 = 1024, over blob 0's monomial
+coefficients), their settings built and each run once before it is
+traced; with the argument `legacy`, only those. Exits non-zero without a
+card.
 """
 
 import os
@@ -102,7 +106,26 @@ def _host_profile(label: str, fn) -> None:
         print(f"  {ct * 1e3:9.1f} ms {nc:7d} x  {where}")
 
 
-def main() -> int:
+def _trace_legacy_fk20(s, blob: bytes) -> None:
+    from . import eip7594, fk20
+    from .ops.field import FR
+
+    raw = torch.from_numpy(np.frombuffer(blob, np.uint8).reshape(1, 4096, 32).copy()).to(s.device)
+    coeffs = FR.decode(eip7594._cells_body(raw)[1][:, 0])
+    calls = [(f"legacy FK20 multi n2 = 8192, chunk_len {c}", fk20.FK20MultiSettings(s, 8192, c), coeffs) for c in (64, 16)]
+    calls.append(("legacy FK20 single n2 = 1024", fk20.FK20SingleSettings(s, 1024), coeffs[:512]))
+    for label, fk, cs in calls:
+        fk.data_availability(cs)  # warm
+        launch.reset_launches()
+        _trace(label, lambda: fk.data_availability(cs))
+        print(f"  wrapper launches: {launch.launches()}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["legacy"]):
+        print("usage: python -m kzg_tpu_torch.trace_main_path [legacy]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("trace_main_path: no CUDA device", file=sys.stderr)
         return 2
@@ -117,6 +140,9 @@ def main() -> int:
     s.lagrange_table  # built on the card (or read from the disk cache), outside the traced calls
     s.column_tables
     blobs = _blobs(N_BLOBS, SEED)
+    if argv == ["legacy"]:
+        _trace_legacy_fk20(s, blobs[0])
+        return 0
     commits = api.blob_to_kzg_commitment_batch(blobs, s)  # warm
     blob_proofs = api.compute_blob_kzg_proof_batch(blobs, commits, s)
     cells, proofs = api.compute_cells_and_kzg_proofs_batch(blobs[:N_CELL_BLOBS], s)
@@ -151,6 +177,7 @@ def main() -> int:
     print(f"wrapper launches in the traced calls: {launch.launches()}")
     _host_profile(f"verify {len(cell_args[0])} cells", lambda: api.verify_cell_kzg_proof_batch(*cell_args, s))
     _host_profile(f"verify {N_BLOBS} blobs", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, blob_proofs, s))
+    _trace_legacy_fk20(s, blobs[0])
     return 0
 
 

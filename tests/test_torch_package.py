@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from kzg_tpu_torch import api, convert, kernels, settings
+from kzg_tpu_torch import api, c_abi_host, convert, fk20, kernels, settings
 from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, g1, launch, msm
 from kzg_tpu_torch.ops.field import FR
 from kzg_tpu_torch.ops.field import ints_to_limbs
+from kzg_tpu_torch.trusted_setup import TrustedSetup
 
 torch.set_num_threads(1)  # one core per test worker: the suite runs several at once
 
@@ -32,7 +33,8 @@ import kzg_tpu_torch
 for m in pkgutil.walk_packages(kzg_tpu_torch.__path__, "kzg_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-for m in ("kzg_tpu_torch.ops.poly", "kzg_tpu_torch.multiproof"):
+for m in ("kzg_tpu_torch.ops.poly", "kzg_tpu_torch.multiproof", "kzg_tpu_torch.fk20", "kzg_tpu_torch.c_abi",
+          "kzg_tpu_torch.c_abi_host"):
     assert m in sys.modules, m
 bad = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith(("jax.", "kzg_tpu.")))]
 assert not bad, bad
@@ -58,6 +60,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         settings.resolve_device("cuda")
     assert settings.resolve_device("cpu") == torch.device("cpu")
+    on_card = settings.TorchKZGSettings(TrustedSetup([None] * 4, [], []), torch.device("cuda"), 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fk20.FK20SingleSettings(on_card, 8)
+    monkeypatch.delenv("KZG_TPU_TORCH_DEVICE", raising=False)
+    assert c_abi_host.load_trusted_setup_file(SETUP) == (c_abi_host.ERROR, 0)
 
 
 def _parameters(fn):
