@@ -84,7 +84,22 @@ Phases (any failure exits non-zero, and the result line is not printed):
      doubles) beside the earlier design's 17; B2 at 32,768, 133,120 and
      256 lanes; B3 at both verify shapes, with its latency bounds (product
      rounds, and one thread's products as in the earlier design); B4 and
-     B5 at each launch of one cells call.
+     B5 at each launch of one cells call;
+  6. multi-device, in ranks of one gloo process group started in processes
+     of their own by kzg_tpu_torch.parallel.dryrun.launch, every rank on
+     this card (NCCL refuses two ranks on one card): 2 ranks on
+     blobs_mesh() run the batch entry points with mesh= at full width
+     (the 64 blobs' commitments byte-equal to phase 2's; verification
+     True, False with two proofs swapped; 63 blobs as without the mesh; a
+     non-canonical blob raises ValueError on both ranks, none hangs); 4
+     ranks on a 2 x 2 global_mesh run the dry run's programs at its small
+     shapes, then msm_fixed_sharded on the Lagrange table over 8 seeded
+     rows, msm_sharded over the 4096 setup points and fft_sharded and
+     ifft_sharded at n = 8192, held here against msm_fixed, msm, fft and
+     ifft. Each rank zeroes the launch counts before its calls and reads
+     them after (they are added to the kernels line's), and holds B1-B5
+     against their plain versions on the first input of each shape its
+     calls gave them; it prints its walls, launches and peak memory.
 
 The last lines are the card line, a JSON line of kernel numbers, and
 {"ok": true, "device": {...}}.
@@ -183,6 +198,224 @@ def build_all():
     for k in NO_SPILL:
         check(k in spills, f"ptxas reported no spill line for {k}")
         check(spills[k].endswith(" 0 bytes spill stores, 0 bytes spill loads"), f"ptxas spills in {k}: {spills[k]}")
+
+
+def shape_key(args):
+    import torch
+
+    return tuple(tuple(a.shape) if torch.is_tensor(a) else tuple(a.x.shape) if isinstance(a, tuple) else a
+                 for a in args)
+
+
+class Recording:
+    """Stands in its module for a kernel wrapper: keeps the wrapper's
+    first input of each shape, then calls it. A wrapper counts its
+    launches on its module-level name, which is this object while it
+    stands in, so `launches` passes through to the wrapper."""
+
+    def __init__(self, module, attr, seen):
+        self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), seen
+        setattr(module, attr, self)
+
+    launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
+
+    def __call__(self, *args):
+        self.seen.setdefault(shape_key(args), args)
+        return self.fn(*args)
+
+    def stop(self):
+        setattr(self.module, self.attr, self.fn)
+
+
+# ---- the multi-device phase's ranks ---------------------------------------
+# Module-level, so that kzg_tpu_torch.parallel.dryrun.launch can start them
+# in processes of their own (spawn); every rank runs on cuda:0 under gloo.
+
+MESH_KERNELS = ("seg_scan_phase1", "add_unified", "horner", "ntt_tile", "ntt_stage")  # B1-B5
+MESH_ROWS = 8  # scalar rows of the 4-rank fixed-base MSM
+
+
+def start_recordings():
+    """Recording stand-ins for B1-B5: (the stand-ins, {kernel: {shape: first input}})."""
+    from kzg_tpu_torch.ops import cuda_fft, cuda_msm
+
+    seen = {name: {} for name in MESH_KERNELS}
+    recs = [Recording(cuda_msm, "seg_scan_phase1_mem", seen["seg_scan_phase1"]),
+            Recording(cuda_msm, "add_points", seen["add_unified"]),
+            Recording(cuda_msm, "horner_windows", seen["horner"]),
+            Recording(cuda_fft, "ntt_tile", seen["ntt_tile"]),
+            Recording(cuda_fft, "ntt_stage", seen["ntt_stage"])]
+    return recs, seen
+
+
+def check_recorded(seen) -> dict:
+    """Every recorded input through its kernel and the plain version, both
+    on the card, limb for limb (tolerance: exact). Returns {kernel:
+    [shapes, max abs limb error]}; raises SmokeFailure on a difference."""
+    import torch
+
+    from kzg_tpu_torch.ops import cuda_fft, cuda_msm, launch
+
+    refs = {"seg_scan_phase1": cuda_msm.seg_scan_phase1_mem_ref, "add_unified": cuda_msm.add_points_ref,
+            "horner": cuda_msm.horner_windows_ref, "ntt_tile": cuda_fft.ntt_tile_ref,
+            "ntt_stage": cuda_fft.ntt_stage_ref}
+    out = {}
+    for name, inputs in seen.items():
+        err = 0
+        for args in inputs.values():
+            got, ref = launch.WRAPPERS[name](*args), refs[name](*args)
+            for a, b in zip(*([x] if torch.is_tensor(x) else x for x in (got, ref))):
+                err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        check(err == 0, f"{name}: kernel and plain version differ on a sharded call's input (max abs limb error {err})")
+        out[name] = [len(inputs), err]
+    return out
+
+
+def mesh_inputs(s, device):
+    """The 4-rank run's seeded inputs: MESH_ROWS rows of 4096 scalars
+    (16, 8, 4096), the 4096 setup points (the bit-reversed Lagrange ones),
+    8192 Fr values (the extended blob's length) in Montgomery form."""
+    import numpy as np
+
+    from kzg_tpu_torch import bench
+    from kzg_tpu_torch.constants import R_MOD as R
+    from kzg_tpu_torch.ops import g1
+    from kzg_tpu_torch.ops.field import FR
+
+    rng = np.random.default_rng(SEED + 10)
+    return (bench.make_inputs(4096, MESH_ROWS, 1, device, seed=SEED + 9)[0],
+            g1.affine_from_ints(s.setup.g1_lagrange_brp, device),
+            FR.encode([int.from_bytes(rng.bytes(32), "big") % R for _ in range(8192)], device))
+
+
+def _rank_run(label, device, body) -> dict:
+    """One rank's run of `body(walls)`: the kernels' launch counts zeroed
+    just before it and read just after, its peak device memory and walls,
+    and the kernels held against their plain versions on every input shape
+    it gave them."""
+    import torch
+    import torch.distributed as dist
+
+    from kzg_tpu_torch.ops import launch
+
+    recs, seen = start_recordings()
+    walls = {}
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launches()
+    try:
+        out = body(walls)
+    finally:
+        counts = launch.launches()
+        for r in recs:
+            r.stop()
+    peak = torch.cuda.max_memory_allocated()
+    recorded = check_recorded(seen)
+    rank = dist.get_rank()
+    print(f"{label} rank {rank}: OK; walls {json.dumps({k: round(v, 3) for k, v in walls.items()})} s; launches "
+          f"{counts}; peak device memory {peak / 2**30:.2f} GiB; kernels exact on the recorded shapes "
+          f"{ {k: v[0] for k, v in recorded.items()} }", flush=True)
+    return {**out, "walls": walls, "launches": counts, "peak_bytes": peak, "recorded": recorded}
+
+
+def mesh_entry_points(device: str, blobs, commits, proofs) -> dict:
+    """A rank of the 2-rank run on blobs_mesh(), at full width: the
+    commitments of the blobs equal the single-process ones; verification
+    is True, False with two proofs swapped; 63 blobs (padded to 64) give
+    the same answers as without the mesh; a non-canonical blob (in rank
+    1's half) raises ValueError on every rank, commit and verify."""
+    import torch
+
+    from kzg_tpu_torch import api
+    from kzg_tpu_torch.constants import R_MOD as R
+    from kzg_tpu_torch.parallel.distributed import blobs_mesh
+
+    t0 = time.perf_counter()
+    mesh = blobs_mesh()
+    s = api.load_trusted_setup_file(device=device)
+    check(s.device == torch.device(device), f"settings on {s.device}, not {device}")
+    s.lagrange_table  # from the table cache the parent filled
+    t_load = time.perf_counter() - t0
+    n = len(blobs)
+    at = n * 5 // 8  # in rank 1's half: rank 0 learns of it from rank 1
+    bad = bytearray(blobs[at])
+    bad[32 * 10 : 32 * 11] = R.to_bytes(32, "big")
+    bad_blobs = blobs[:at] + [bytes(bad)] + blobs[at + 1 :]
+
+    def body(walls):
+        def call(label, fn):
+            out, walls[label] = timed(fn)
+            return out
+
+        check(call(f"commit {n}", lambda: api.blob_to_kzg_commitment_batch(blobs, s, mesh=mesh)) == commits,
+              "the mesh's commitments differ from the single-process ones")
+        check(call(f"verify {n}", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, proofs, s, mesh=mesh))
+              is True, "mesh verification of valid blobs is not True")
+        swapped = [proofs[1], proofs[0]] + proofs[2:]
+        check(call(f"verify {n}, two proofs swapped",
+                   lambda: api.verify_blob_kzg_proof_batch(blobs, commits, swapped, s, mesh=mesh)) is False,
+              "mesh verification passes two swapped proofs")
+        k = n - 1
+        check(call(f"commit {k}", lambda: api.blob_to_kzg_commitment_batch(blobs[:k], s, mesh=mesh)) == commits[:k],
+              f"the mesh's commitments of {k} blobs differ from the single-process ones")
+        check(call(f"verify {k}", lambda: api.verify_blob_kzg_proof_batch(blobs[:k], commits[:k], proofs[:k], s,
+                                                                           mesh=mesh)) is True,
+              f"mesh verification of {k} valid blobs is not True")
+        for label, fn in (("commit", lambda: api.blob_to_kzg_commitment_batch(bad_blobs, s, mesh=mesh)),
+                          ("verify", lambda: api.verify_blob_kzg_proof_batch(bad_blobs, commits, proofs, s,
+                                                                             mesh=mesh))):
+            try:
+                call(f"{label} with a non-canonical blob", fn)
+            except ValueError as e:
+                check("not canonical" in str(e), f"{label} of a non-canonical blob raised {e!r}")
+            else:
+                raise SmokeFailure(f"{label} of a non-canonical blob on the mesh did not raise")
+        return {}
+
+    return {**_rank_run("mesh entry points", device, body), "load_s": t_load}
+
+
+def mesh_programs(device: str) -> dict:
+    """A rank of the 4-rank run on global_mesh(2), a 2 x 2 blobs x points
+    mesh: the dry run's programs at its small shapes, then at full width
+    msm_fixed_sharded on the mainnet Lagrange table (c = 13, 20 windows)
+    over MESH_ROWS seeded rows, msm_sharded over the 4096 setup points, and
+    fft_sharded and ifft_sharded at n = 8192, which must round-trip.
+    Returns the results as Python ints for the parent to hold against the
+    single-process functions."""
+    import torch
+
+    from kzg_tpu_torch import api
+    from kzg_tpu_torch.ops import g1
+    from kzg_tpu_torch.ops.field import limbs_to_ints
+    from kzg_tpu_torch.parallel import dryrun
+    from kzg_tpu_torch.parallel.distributed import blobs_mesh, global_mesh
+    from kzg_tpu_torch.parallel.sharded_fft import fft_sharded, ifft_sharded
+    from kzg_tpu_torch.parallel.sharded_msm import msm_fixed_sharded, msm_sharded
+
+    t0 = time.perf_counter()
+    mesh, bmesh = global_mesh(2), blobs_mesh()
+    dryrun.toy_checks(device, mesh, bmesh)  # raises on a difference
+    t_toy = time.perf_counter() - t0
+    s = api.load_trusted_setup_file(device=device)
+    check(s.device == torch.device(device), f"settings on {s.device}, not {device}")
+    table = s.lagrange_table  # from the table cache the parent filled
+    sc, pts, x = mesh_inputs(s, torch.device(device))
+    t_load = time.perf_counter() - t0 - t_toy
+
+    def body(walls):
+        def call(label, fn):
+            out, walls[label] = timed(fn)
+            return out
+
+        fixed = call(f"msm_fixed_sharded {MESH_ROWS} x 4096 (with to_affine)",
+                     lambda: g1.xyzz_to_ints(msm_fixed_sharded(table, sc, mesh)))
+        var = call("msm_sharded 4096 (with to_affine)", lambda: g1.xyzz_to_ints(msm_sharded(pts, sc[:, 0], mesh)))
+        fwd = call("fft_sharded 8192", lambda: (fft_sharded(x, mesh), torch.cuda.synchronize())[0])
+        inv = call("ifft_sharded 8192", lambda: (ifft_sharded(x, mesh), torch.cuda.synchronize())[0])
+        check(torch.equal(ifft_sharded(fwd, mesh), x), "ifft_sharded(fft_sharded(x)) != x")
+        return {"fixed": fixed, "var": var, "fft": limbs_to_ints(fwd), "ifft": limbs_to_ints(inv)}
+
+    return {**_rank_run("mesh programs", device, body), "toy_s": t_toy, "load_s": t_load}
 
 
 def host_eval(blob: bytes, z: int, roots_brp) -> int:
@@ -434,29 +667,6 @@ def main() -> int:
     # keeps its first input of each shape; section 3 holds the kernel
     # against its plain version on every one of them.
     path_inputs = {name: {} for name in ("seg_scan_phase1", "add_unified", "ntt_tile", "ntt_stage")}
-
-    def shape_key(args):
-        return tuple(tuple(a.shape) if torch.is_tensor(a) else tuple(a.x.shape) if isinstance(a, tuple) else a
-                     for a in args)
-
-    class Recording:
-        """Stands in its module for a kernel wrapper: keeps the wrapper's
-        first input of each shape, then calls it. A wrapper counts its
-        launches on its module-level name, which is this object while it
-        stands in, so `launches` passes through to the wrapper."""
-
-        def __init__(self, module, attr, seen):
-            self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), seen
-            setattr(module, attr, self)
-
-        launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
-
-        def __call__(self, *args):
-            self.seen.setdefault(shape_key(args), args)
-            return self.fn(*args)
-
-        def stop(self):
-            setattr(self.module, self.attr, self.fn)
 
     recordings = [Recording(cuda_msm, "seg_scan_phase1_mem", path_inputs["seg_scan_phase1"]),
                   Recording(cuda_msm, "add_points", path_inputs["add_unified"]),
@@ -1198,6 +1408,51 @@ def main() -> int:
     cuda_gather.raise_if_flagged(flag)
     t_b6, t_b6_plain, t_b6_lib, b6_bound = b6["probe"]
 
+    # ---- 6. multi-device ------------------------------------------------
+    # Ranks of one gloo process group in processes of their own (spawned by
+    # kzg_tpu_torch.parallel.dryrun.launch), every rank computing on this
+    # card: NCCL refuses two ranks on one card; with a card a rank, the same
+    # code runs under NCCL (torchrun). The kernels, the native core and the
+    # Lagrange table's cache were built above, so the ranks only load them.
+    from kzg_tpu_torch.parallel import dryrun
+
+    torch.cuda.empty_cache()
+    log(f"multi-device: backend gloo, every rank on {dev}; the ranks share this card and its host")
+    mesh_runs = {}
+
+    def mesh_launch(label, program, n_procs, args):
+        ranks, secs = timed(lambda: dryrun.launch(program, n_procs, str(dev), args, timeout=400))
+        mesh_runs[label] = (n_procs, secs, ranks)
+        log(f"{label}: {n_procs} ranks in {secs:.1f} s with start-up (gloo)")
+        for r, res in enumerate(ranks):
+            log(f"  rank {r}: " + "; ".join(f"{k} {v:.3f} s" for k, v in res["walls"].items()))
+            log(f"  rank {r}: launches {res['launches']}; peak device memory {res['peak_bytes'] / 2**30:.2f} GiB; "
+                f"kernels exact on their recorded shapes {res['recorded']} [{card}]")
+            for name, k in res["launches"].items():
+                main_launches[name] += k
+        return ranks
+
+    mesh_launch("mesh entry points (blobs_mesh, 2 ranks)", mesh_entry_points, 2, (blobs, commits, proofs))
+    for r, res in enumerate(mesh_runs["mesh entry points (blobs_mesh, 2 ranks)"][2]):
+        for name in ("seg_scan_phase1", "add_unified", "horner"):
+            check(res["launches"][name] > 0, f"rank {r} of the mesh entry points launched no {name}")
+    log(f"mesh entry points: {N_BLOBS} commitments byte-equal to the single-process ones; verification True, "
+        f"False with two proofs swapped; {N_BLOBS - 1} blobs padded as without the mesh; a non-canonical blob "
+        f"raises ValueError on both ranks")
+    sc_m, pts_m, x_m = mesh_inputs(s, dev)
+    want = {"fixed": g1.xyzz_to_ints(msm.msm_fixed(table, sc_m)), "var": g1.xyzz_to_ints(msm.msm(pts_m, sc_m[:, 0])),
+            "fft": fl.limbs_to_ints(fft_ops.fft(x_m)), "ifft": fl.limbs_to_ints(fft_ops.ifft(x_m))}
+    want = json.loads(json.dumps(want))  # as the ranks' JSON gives them: points as [x, y] lists
+    ranks4 = mesh_launch("mesh programs (global_mesh 2 x 2, 4 ranks)", mesh_programs, 4, ())
+    for r, res in enumerate(ranks4):
+        for key, value in want.items():
+            check(res[key] == value, f"rank {r}: the sharded {key} differs from the single-process function")
+        for name in ("seg_scan_phase1", "add_unified", "horner", "ntt_tile"):
+            check(res["launches"][name] > 0, f"rank {r} of the mesh programs launched no {name}")
+    log(f"mesh programs: the dry run's programs at its small shapes; msm_fixed_sharded ({MESH_ROWS} x 4096, c = 13) "
+        f"and msm_sharded (4096 setup points) affine-equal to msm_fixed and msm; fft_sharded and ifft_sharded at "
+        f"8192 limb-equal to fft and ifft, and they round-trip")
+
     rows_out = []
     for name, ms, plain_ms, bound, by, source, replaces in (
         ("seg_scan_phase1", t_b1, t_plain_b1 * 1e3, max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3,
@@ -1249,6 +1504,11 @@ def main() -> int:
     for label, secs in legacy_walls.items():
         log(f"legacy FK20 {label}: {secs:.3f} s; launches {legacy_launches[label]} [{card}]")
     log(f"C ABI test program: {t_c_prog:.1f} s [{card}]")
+    for label, (n_procs, secs, ranks) in mesh_runs.items():
+        walls = {k: max(res["walls"][k] for res in ranks) for k in ranks[0]["walls"]}
+        log(f"{label}: {secs:.1f} s with start-up; slowest rank's walls "
+            + "; ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+            + f"; peak device memory a rank up to {max(res['peak_bytes'] for res in ranks) / 2**30:.2f} GiB [{card}]")
     log(f"main path launches: {main_launches}")
     log(f"peak device memory: EIP-4844 main path {peak_mem / 2**30:.2f} GiB; "
         f"EIP-7594 {N_CELL_BLOBS}-blob call {peak_mem_cells / 2**30:.2f} GiB")

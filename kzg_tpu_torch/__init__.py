@@ -5,8 +5,8 @@ cells, FK20 cell proofs and batch verification of cell proofs, with the
 MSMs' bucket scan, complete point addition and window combination and the
 Fr NTT's stages in hand-written CUDA kernels (csrc/); and the benches
 (bench.py, benches/), with the gather probe's row gather in a kernel of
-its own. Imports torch and numpy, and nothing of JAX or of the kzg_tpu
-package.
+its own; and the multi-device programs on torch.distributed (parallel/).
+Imports torch and numpy, and nothing of JAX or of the kzg_tpu package.
 """
 
 from .api import (

@@ -8,7 +8,8 @@ verify cell proofs in a batch; prove and verify multi-point openings.
     commitment = kzg.blob_to_kzg_commitment(blob, s)
 
 The parameters are the JAX package's (`kzg_tpu/api.py`), with `device`
-added last where a function places data. With no path,
+added last where a function places data; `mesh` (the two batch EIP-4844
+calls) is a torch DeviceMesh (parallel/distributed.py). With no path,
 load_trusted_setup_file finds the setup as the JAX package does:
 $KZG_TPU_TRUSTED_SETUP, else the repo's tests/trusted_setup.txt. Entry
 points run on the card (CUDA) unless `device` names another one; with no
@@ -42,8 +43,11 @@ def blob_to_kzg_commitment(blob: bytes, s: Settings) -> bytes:
     return _e4.blob_to_kzg_commitment(blob, s)
 
 
-def blob_to_kzg_commitment_batch(blobs: Sequence[bytes], s: Settings) -> List[bytes]:
-    return _e4.blob_to_kzg_commitment_batch(blobs, s)
+def blob_to_kzg_commitment_batch(blobs: Sequence[bytes], s: Settings, mesh=None) -> List[bytes]:
+    """mesh: optional DeviceMesh with a "blobs" axis (parallel/distributed.py):
+    every rank calls with the same blobs, commits to its share of them, and
+    gets back every commitment."""
+    return _e4.blob_to_kzg_commitment_batch(blobs, s, mesh=mesh)
 
 
 def compute_blob_kzg_proof(blob: bytes, commitment: bytes, s: Settings) -> bytes:
@@ -69,9 +73,12 @@ def verify_blob_kzg_proof(blob: bytes, commitment: bytes, proof: bytes, s: Setti
 
 
 def verify_blob_kzg_proof_batch(
-    blobs: Sequence[bytes], commitments: Sequence[bytes], proofs: Sequence[bytes], s: Settings
+    blobs: Sequence[bytes], commitments: Sequence[bytes], proofs: Sequence[bytes], s: Settings, mesh=None
 ) -> bool:
-    return _e4.verify_blob_kzg_proof_batch(blobs, commitments, proofs, s)
+    """mesh: optional DeviceMesh with a "blobs" axis: every rank calls with
+    the same arguments; the evaluations and the lincomb's points are cut
+    over the ranks, and every rank returns the answer."""
+    return _e4.verify_blob_kzg_proof_batch(blobs, commitments, proofs, s, mesh=mesh)
 
 
 def compute_cells(blob: bytes, s: Settings) -> List[bytes]:

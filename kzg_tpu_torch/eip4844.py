@@ -8,6 +8,11 @@ fixed-base MSM and the affine conversion; batch verification adds the
 r-weighted lincombs as one variable-base MSM. The host does the SHA-256
 Fiat-Shamir challenges, the 48-byte point codecs and the pairings (native
 core). Batches run in chunks of BATCH_CHUNK blobs.
+
+The batch entry points take an optional mesh (parallel/distributed.py)
+with a "blobs" axis: every rank of the process group calls with the same
+arguments, computes its share of the blobs (and of the verification's
+lincomb points) on its own device, and gets back the whole answer.
 """
 
 import hashlib
@@ -36,6 +41,8 @@ from .ops import field as fl
 from .ops import g1 as dg1
 from .ops import msm as dmsm
 from .ops.field import FR
+from .parallel.distributed import all_gather, axis_size, gather_shards, shard
+from .parallel.sharded_msm import msm_sharded
 from .settings import TorchKZGSettings
 
 BATCH_CHUNK = 64  # blobs per device pass (bounds the scan's working set)
@@ -116,13 +123,24 @@ def _prove_body(poly_limbs, z_limbs, roots_m, table: dmsm.FixedBaseTable):
     return dg1.to_affine(dmsm.msm_fixed(table, q)), y_m
 
 
-def _eval_body(raw: torch.Tensor, z_limbs: torch.Tensor, roots_m) -> torch.Tensor:
+def _require_canonical(ok: torch.Tensor, mesh=None) -> None:
+    """Raise unless every scalar is canonical. On a mesh, unless every
+    rank's blobs are: the ranks agree through one all_gather of their
+    flags, so all of them raise together and none is left waiting in a
+    collective."""
+    flag = ok.all().to(torch.int32).reshape(1)
+    if mesh is not None:
+        flag = all_gather(flag, mesh, "blobs")
+    if not bool(flag.all()):
+        raise ValueError("Invalid blob: scalar is not canonical")
+
+
+def _eval_body(raw: torch.Tensor, z_limbs: torch.Tensor, roots_m, mesh=None) -> torch.Tensor:
     """(B, n, 32) uint8 blob bytes + canonical z limbs (16, B, 1) ->
     canonical evaluations y (16, B, 1). Raises before the evaluation if a
-    scalar is not canonical."""
+    scalar is not canonical (on a mesh: any rank's)."""
     poly, ok = _bytes_to_limbs(raw)
-    if not bool(ok.all()):
-        raise ValueError("Invalid blob: scalar is not canonical")
+    _require_canonical(ok, mesh)
     y_m, _, _ = _eval_barycentric_body(fl.from_canonical(FR, poly), fl.from_canonical(FR, z_limbs), roots_m)
     return fl.to_canonical(FR, y_m)
 
@@ -134,13 +152,47 @@ def _lincomb_body(points: dg1.G1Aff, scalars: torch.Tensor) -> dg1.G1Aff:
     return dg1.to_affine(dmsm.msm(dg1.repeat_batch(points, 2), scalars))
 
 
-def _commit_body(raw: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1Aff:
+def _commit_body(raw: torch.Tensor, table: dmsm.FixedBaseTable, mesh=None) -> dg1.G1Aff:
     """(B, n, 32) uint8 blob bytes -> commitments as affine points (B,).
-    Raises before any point work if a scalar is not canonical."""
+    Raises before any point work if a scalar is not canonical (on a mesh:
+    any rank's)."""
     scalars, ok = _bytes_to_limbs(raw)
-    if not bool(ok.all()):
-        raise ValueError("Invalid blob: scalar is not canonical")
+    _require_canonical(ok, mesh)
     return dg1.to_affine(dmsm.msm_fixed(table, scalars))
+
+
+# ---------------------------------------------------------------------------
+# The same bodies sharded over a mesh's "blobs" axis: every rank passes the
+# full inputs, computes its block, and gets back the whole result
+# ---------------------------------------------------------------------------
+
+
+def _commit_sharded(raw: torch.Tensor, table: dmsm.FixedBaseTable, mesh) -> dg1.G1Aff:
+    """Commitments with the blobs (B, n, 32) cut over the mesh's "blobs"
+    axis, B a multiple of its size; the table on every rank. Returns the
+    affine points (B,) on every rank."""
+    aff = _commit_body(shard(raw, mesh, "blobs", 0), table, mesh)
+    return dg1.G1Aff(*(gather_shards(t, mesh, "blobs", t.dim() - 1) for t in aff))
+
+
+def _eval_sharded(raw: torch.Tensor, z_limbs: torch.Tensor, roots_m, mesh) -> torch.Tensor:
+    """Evaluations with the blobs cut over the mesh's "blobs" axis: raw
+    (B, n, 32), z (16, B, 1). Returns canonical y (16, B, 1) on every
+    rank."""
+    y = _eval_body(shard(raw, mesh, "blobs", 0), shard(z_limbs, mesh, "blobs", 1), roots_m, mesh)
+    return gather_shards(y, mesh, "blobs", 1)
+
+
+def _lincomb_sharded(points: dg1.G1Aff, scalars: torch.Tensor, mesh, c=None) -> dg1.G1Aff:
+    """Variable-base MSMs over the same points, with the points cut over
+    the mesh's "blobs" axis: points (24, k, m), scalars (16, k, m). The
+    points are padded with the identity (scalar 0) to a multiple of the
+    axis's size. Returns the k sums as affine points on every rank."""
+    m = points.x.shape[-1]
+    m += (-m) % axis_size(mesh, "blobs")
+    points = dg1.G1Aff(fl._pad_last(points.x, m), fl._pad_last(points.y, m), fl._pad_last(points.inf, m, points.inf.new_ones(1)))
+    scalars = fl._pad_last(scalars, m)
+    return dg1.to_affine(msm_sharded(points, scalars, mesh, point_axis="blobs", c=c))
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +253,20 @@ def _batch_challenge_r(commitments_b, zs, ys, proofs_b) -> int:
     return hash_to_bls_field(hashlib.sha256(bytes(data)).digest())
 
 
-def _chunks(seq, k=BATCH_CHUNK):
-    for i in range(0, len(seq), k):
-        yield seq[i : i + k]
+def _blob_tensor(blobs: Sequence[bytes], device) -> torch.Tensor:
+    """Blobs of checked length -> (B, 4096, 32) uint8 on `device`."""
+    raw = np.frombuffer(b"".join(blobs), dtype=np.uint8).reshape(len(blobs), FIELD_ELEMENTS_PER_BLOB, 32)
+    return torch.from_numpy(raw.copy()).to(device)
+
+
+def _blob_axis(mesh) -> int:
+    """The size of the mesh's "blobs" axis; 1 without a mesh."""
+    return 1 if mesh is None else axis_size(mesh, "blobs")
+
+
+def _padded(items: list, d: int, fill) -> list:
+    """`items` padded with `fill` to a multiple of d."""
+    return items + [fill] * ((-len(items)) % d)
 
 
 # ---------------------------------------------------------------------------
@@ -211,19 +274,22 @@ def _chunks(seq, k=BATCH_CHUNK):
 # ---------------------------------------------------------------------------
 
 
-def blob_to_kzg_commitment_batch(blobs: Sequence[bytes], s: TorchKZGSettings) -> List[bytes]:
+def blob_to_kzg_commitment_batch(blobs: Sequence[bytes], s: TorchKZGSettings, mesh=None) -> List[bytes]:
     """Commit to many blobs, one fixed-base MSM family per chunk of
-    BATCH_CHUNK blobs."""
+    BATCH_CHUNK blobs. With a mesh, each chunk holds BATCH_CHUNK blobs a
+    rank of the "blobs" axis, padded with blobs[0] to a multiple of the
+    axis's size, and every rank returns every commitment."""
     blobs = list(blobs)
     for b in blobs:
         _check_blob_length(b)
+    d = _blob_axis(mesh)
     table = s.lagrange_table
     out = []
-    for chunk in _chunks(blobs):
-        raw = np.frombuffer(b"".join(chunk), dtype=np.uint8).reshape(
-            len(chunk), FIELD_ELEMENTS_PER_BLOB, 32
-        )
-        out.extend(_affine_to_bytes(_commit_body(torch.from_numpy(raw.copy()).to(s.device), table)))
+    for lo in range(0, len(blobs), BATCH_CHUNK * d):
+        chunk = blobs[lo : lo + BATCH_CHUNK * d]
+        raw = _blob_tensor(_padded(chunk, d, blobs[0]), s.device)
+        aff = _commit_body(raw, table) if mesh is None else _commit_sharded(raw, table, mesh)
+        out.extend(_affine_to_bytes(aff)[: len(chunk)])
     return out
 
 
@@ -299,21 +365,25 @@ def verify_kzg_proof(
     return _check_proof_single(s, commitment, proof, int.from_bytes(z, "big"), int.from_bytes(y, "big"))
 
 
-def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings):
+def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings, mesh=None):
     """The points [commitments | proofs | G] (24, 2n + 1) on the device and
     the scalars (16, 2, 2n + 1) of the two lincombs of batch verification:
     the challenges z_i, the evaluations y_i = p_i(z_i) on the device (one
-    pass per chunk of BATCH_CHUNK blobs; raises if a blob scalar is not
-    canonical), the points decompressed (raises on an invalid one), and the
-    powers r_i of the batch challenge."""
+    pass per chunk of BATCH_CHUNK blobs, a rank's with a mesh, the blobs
+    padded with blobs[0] to a multiple of its "blobs" axis; raises if a
+    blob scalar is not canonical), the points decompressed (raises on an
+    invalid one), and the powers r_i of the batch challenge."""
     n = len(blobs)
     zs = [compute_challenge(b, c) for b, c in zip(blobs, commitments_bytes)]
+    d = _blob_axis(mesh)
     ys = []
-    for lo in range(0, n, BATCH_CHUNK):
-        chunk = blobs[lo : lo + BATCH_CHUNK]
-        raw = np.frombuffer(b"".join(chunk), dtype=np.uint8).reshape(len(chunk), FIELD_ELEMENTS_PER_BLOB, 32)
-        z = torch.from_numpy(fl.ints_to_limbs(zs[lo : lo + BATCH_CHUNK], FR.n_limbs))[:, :, None]
-        ys += fl.limbs_to_ints(_eval_body(torch.from_numpy(raw.copy()).to(s.device), z.to(s.device), s.roots_brp_mont))
+    for lo in range(0, n, BATCH_CHUNK * d):
+        chunk = blobs[lo : lo + BATCH_CHUNK * d]
+        raw = _blob_tensor(_padded(chunk, d, blobs[0]), s.device)
+        z = torch.from_numpy(fl.ints_to_limbs(_padded(zs[lo : lo + len(chunk)], d, zs[0]), FR.n_limbs))
+        z = z[:, :, None].to(s.device)
+        y = _eval_body(raw, z, s.roots_brp_mont) if mesh is None else _eval_sharded(raw, z, s.roots_brp_mont, mesh)
+        ys += fl.limbs_to_ints(y)[: len(chunk)]
     commitments = native.g1_decompress_batch(b"".join(commitments_bytes))
     proofs = native.g1_decompress_batch(b"".join(proofs_bytes))
     r_powers = compute_powers(_batch_challenge_r(commitments_bytes, zs, ys, proofs_bytes), n)
@@ -331,7 +401,11 @@ def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings)
 
 
 def verify_blob_kzg_proof_batch(
-    blobs: Sequence[bytes], commitments_bytes: Sequence[bytes], proofs_bytes: Sequence[bytes], s: TorchKZGSettings
+    blobs: Sequence[bytes],
+    commitments_bytes: Sequence[bytes],
+    proofs_bytes: Sequence[bytes],
+    s: TorchKZGSettings,
+    mesh=None,
 ) -> bool:
     """Batch verification of blob proofs. On the device: the evaluations
     y_i = p_i(z_i) (one pass per chunk of BATCH_CHUNK blobs), and the
@@ -341,7 +415,12 @@ def verify_blob_kzg_proof_batch(
         rhs = sum_i r_i C_i + sum_i r_i z_i P_i - (sum_i r_i y_i) G
                                                        (r_i | r_i z_i | -sum)
     On the host: the challenges and one pairing check,
-    e(proof_lincomb, [s]_2) == e(rhs, H)."""
+    e(proof_lincomb, [s]_2) == e(rhs, H).
+
+    A mesh is used when the batch, padded to a power of two, divides over
+    its "blobs" axis (as the JAX package decides): the evaluations and the
+    lincomb's points are then cut over that axis, and every rank computes
+    the challenge and the pairing check from the gathered values."""
     blobs, commitments_bytes, proofs_bytes = list(blobs), list(commitments_bytes), list(proofs_bytes)
     if not (len(blobs) == len(commitments_bytes) == len(proofs_bytes)):
         raise ValueError("Invalid amount of arguments")
@@ -351,7 +430,13 @@ def verify_blob_kzg_proof_batch(
         raise ValueError("Invalid commitment/proof length")
     for b in blobs:
         _check_blob_length(b)
-    proof_lincomb, rhs = dg1.affine_to_ints(_lincomb_body(*_lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s)))
+    npad = 1 << (len(blobs) - 1).bit_length()
+    if mesh is not None and npad % _blob_axis(mesh) == 0:
+        points, scalars = _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s, mesh)
+        lincombs = _lincomb_sharded(dg1.repeat_batch(points, 2), scalars, mesh)
+    else:
+        lincombs = _lincomb_body(*_lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s))
+    proof_lincomb, rhs = dg1.affine_to_ints(lincombs)
     return native.pairings_verify(proof_lincomb, s.g2_monomial[1], rhs, G2_GENERATOR)
 
 

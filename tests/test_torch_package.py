@@ -34,7 +34,7 @@ for m in pkgutil.walk_packages(kzg_tpu_torch.__path__, "kzg_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for m in ("kzg_tpu_torch.ops.poly", "kzg_tpu_torch.multiproof", "kzg_tpu_torch.fk20", "kzg_tpu_torch.c_abi",
-          "kzg_tpu_torch.c_abi_host"):
+          "kzg_tpu_torch.c_abi_host", "kzg_tpu_torch.parallel.dryrun", "kzg_tpu_torch.benches.scaling_2proc"):
     assert m in sys.modules, m
 bad = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith(("jax.", "kzg_tpu.")))]
 assert not bad, bad
@@ -111,16 +111,13 @@ def test_api_has_every_public_name_of_the_jax_package():
 def test_api_signature_matches_the_jax_package(name):
     """The function takes the JAX package's parameters, in the same order,
     with the same defaults: a keyword call that works on one package works
-    on the other. The port alone adds a trailing `device`; the JAX
-    package's trailing `mesh` (its multi-device entry points) waits for the
-    port's multi-device slice."""
+    on the other. The port alone adds a trailing `device`; the `mesh` of
+    the two batch EIP-4844 calls is compared like every other parameter."""
     from kzg_tpu import api as japi
 
     port, ref = _parameters(getattr(api, name)), _parameters(getattr(japi, name))
     if port[-1:] == [("device", None)]:
         port = port[:-1]
-    if ref[-1:] == [("mesh", None)]:
-        ref = ref[:-1]
     assert port == ref
 
 
