@@ -209,15 +209,13 @@ def shape_key(args):
 
 class Recording:
     """Stands in its module for a kernel wrapper: keeps the wrapper's
-    first input of each shape, then calls it. A wrapper counts its
-    launches on its module-level name, which is this object while it
-    stands in, so `launches` passes through to the wrapper."""
+    first input of each shape, then calls it. The wrapper counts its
+    launches in the tracing registry by the kernel's name, whatever
+    stands in for it."""
 
     def __init__(self, module, attr, seen):
         self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), seen
         setattr(module, attr, self)
-
-    launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
 
     def __call__(self, *args):
         self.seen.setdefault(shape_key(args), args)

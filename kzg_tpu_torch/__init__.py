@@ -6,6 +6,7 @@ MSMs' bucket scan, complete point addition and window combination and the
 Fr NTT's stages in hand-written CUDA kernels (csrc/); and the benches
 (bench.py, benches/), with the gather probe's row gather in a kernel of
 its own; and the multi-device programs on torch.distributed (parallel/).
+Spans and counters of every layer live in one registry (tracing.py).
 Imports torch and numpy, and nothing of JAX or of the kzg_tpu package.
 """
 

@@ -44,6 +44,7 @@ from .ops.field import FR
 from .parallel.distributed import all_gather, axis_size, gather_shards, shard
 from .parallel.sharded_msm import msm_sharded
 from .settings import TorchKZGSettings
+from .tracing import span
 
 BATCH_CHUNK = 64  # blobs per device pass (bounds the scan's working set)
 
@@ -112,6 +113,7 @@ def _quotient_body(poly_m, y_m, z_m, inv_diff, was_zero, roots_m):
     return fl.to_canonical(FR, q)
 
 
+@span("kzg.body.prove")
 def _prove_body(poly_limbs, z_limbs, roots_m, table: dmsm.FixedBaseTable):
     """Canonical blob limbs (16, B, n) + canonical z limbs (16, B, 1) ->
     (proofs as affine points (B,), the evaluations y (16, B, 1) in
@@ -131,10 +133,11 @@ def _require_canonical(ok: torch.Tensor, mesh=None) -> None:
     flag = ok.all().to(torch.int32).reshape(1)
     if mesh is not None:
         flag = all_gather(flag, mesh, "blobs")
-    if not bool(flag.all()):
+    if not bool(fl.to_host(flag.all())):
         raise ValueError("Invalid blob: scalar is not canonical")
 
 
+@span("kzg.body.eval")
 def _eval_body(raw: torch.Tensor, z_limbs: torch.Tensor, roots_m, mesh=None) -> torch.Tensor:
     """(B, n, 32) uint8 blob bytes + canonical z limbs (16, B, 1) ->
     canonical evaluations y (16, B, 1). Raises before the evaluation if a
@@ -145,6 +148,7 @@ def _eval_body(raw: torch.Tensor, z_limbs: torch.Tensor, roots_m, mesh=None) -> 
     return fl.to_canonical(FR, y_m)
 
 
+@span("kzg.body.lincomb")
 def _lincomb_body(points: dg1.G1Aff, scalars: torch.Tensor) -> dg1.G1Aff:
     """The r-weighted lincombs of batch verification as one batch-2
     variable-base MSM over the same points (24, m): scalars (16, 2, m).
@@ -152,6 +156,7 @@ def _lincomb_body(points: dg1.G1Aff, scalars: torch.Tensor) -> dg1.G1Aff:
     return dg1.to_affine(dmsm.msm(dg1.repeat_batch(points, 2), scalars))
 
 
+@span("kzg.body.commit")
 def _commit_body(raw: torch.Tensor, table: dmsm.FixedBaseTable, mesh=None) -> dg1.G1Aff:
     """(B, n, 32) uint8 blob bytes -> commitments as affine points (B,).
     Raises before any point work if a scalar is not canonical (on a mesh:
@@ -256,7 +261,7 @@ def _batch_challenge_r(commitments_b, zs, ys, proofs_b) -> int:
 def _blob_tensor(blobs: Sequence[bytes], device) -> torch.Tensor:
     """Blobs of checked length -> (B, 4096, 32) uint8 on `device`."""
     raw = np.frombuffer(b"".join(blobs), dtype=np.uint8).reshape(len(blobs), FIELD_ELEMENTS_PER_BLOB, 32)
-    return torch.from_numpy(raw.copy()).to(device)
+    return fl.to_device(raw.copy(), device)
 
 
 def _blob_axis(mesh) -> int:
@@ -313,9 +318,9 @@ def compute_blob_kzg_proof_batch(
     out = []
     for lo in range(0, len(blobs), BATCH_CHUNK):
         chunk = blobs[lo : lo + BATCH_CHUNK]
-        poly = torch.from_numpy(bs.blobs_to_scalars(chunk)).to(s.device)
-        z = torch.from_numpy(fl.ints_to_limbs(zs[lo : lo + BATCH_CHUNK], FR.n_limbs))
-        out.extend(_affine_to_bytes(_prove_body(poly, z[:, :, None].to(s.device), s.roots_brp_mont, table)[0]))
+        poly = fl.to_device(bs.blobs_to_scalars(chunk), s.device)
+        z = fl.to_device(fl.ints_to_limbs(zs[lo : lo + BATCH_CHUNK], FR.n_limbs)[:, :, None], s.device)
+        out.extend(_affine_to_bytes(_prove_body(poly, z, s.roots_brp_mont, table)[0]))
     return out
 
 
@@ -343,10 +348,10 @@ def compute_kzg_proof(blob_bytes: bytes, z: bytes, s: TorchKZGSettings) -> Tuple
     y = p(z) (32 bytes, big-endian): the prove body at an arbitrary z."""
     _check_blob_length(blob_bytes)
     z_host = bs.fr_from_bytes(z)  # (16, 1); raises on length and canonicality
-    poly = torch.from_numpy(bs.blobs_to_scalars([blob_bytes])).to(s.device)
-    z_limbs = torch.from_numpy(z_host)[:, :, None].to(s.device)
+    poly = fl.to_device(bs.blobs_to_scalars([blob_bytes]), s.device)
+    z_limbs = fl.to_device(z_host[:, :, None], s.device)
     aff, y_m = _prove_body(poly, z_limbs, s.roots_brp_mont, s.lagrange_table)
-    y = fl.to_canonical(FR, y_m)[:, :, 0].cpu().numpy()
+    y = fl.to_host(fl.to_canonical(FR, y_m)[:, :, 0]).numpy()
     return _affine_to_bytes(aff)[0], bs.frs_to_bytes(y)
 
 
@@ -380,8 +385,8 @@ def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings,
     for lo in range(0, n, BATCH_CHUNK * d):
         chunk = blobs[lo : lo + BATCH_CHUNK * d]
         raw = _blob_tensor(_padded(chunk, d, blobs[0]), s.device)
-        z = torch.from_numpy(fl.ints_to_limbs(_padded(zs[lo : lo + len(chunk)], d, zs[0]), FR.n_limbs))
-        z = z[:, :, None].to(s.device)
+        z = fl.ints_to_limbs(_padded(zs[lo : lo + len(chunk)], d, zs[0]), FR.n_limbs)
+        z = fl.to_device(z[:, :, None], s.device)
         y = _eval_body(raw, z, s.roots_brp_mont) if mesh is None else _eval_sharded(raw, z, s.roots_brp_mont, mesh)
         ys += fl.limbs_to_ints(y)[: len(chunk)]
     commitments = native.g1_decompress_batch(b"".join(commitments_bytes))
@@ -397,7 +402,7 @@ def _lincomb_inputs(blobs, commitments_bytes, proofs_bytes, s: TorchKZGSettings,
         axis=1,
     )
     points = dg1.affine_from_ints(commitments + proofs + [G1_GENERATOR], s.device)
-    return points, torch.from_numpy(scalars).to(s.device)
+    return points, fl.to_device(scalars, s.device)
 
 
 def verify_blob_kzg_proof_batch(

@@ -57,6 +57,7 @@ from .ops.field import FR
 from .ops.g1fft import fk20_half_convolution
 from .ops.poly import vanishing_poly
 from .settings import CELL_INDICES_RBL, TorchKZGSettings
+from .tracing import span
 
 N = FIELD_ELEMENTS_PER_BLOB
 N_EXT = FIELD_ELEMENTS_PER_EXT_BLOB  # 8192
@@ -94,13 +95,14 @@ def _lagrange_to_monomial(blob_m: torch.Tensor) -> torch.Tensor:
     return ifft(bit_reverse(blob_m))
 
 
+@span("kzg.body.cells")
 def _cells_body(raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, 4096, 32) uint8 blob bytes -> (cells, poly): the 8192 extension
     values in wire (bit-reversed) order as canonical limbs (16, B, 8192),
     and the monomial coefficients (16, B, 4096) in Montgomery form. Raises
     before any FFT if a scalar is not canonical."""
     limbs, ok = _bytes_to_limbs(raw)
-    if not bool(ok.all()):
+    if not bool(fl.to_host(ok.all())):
         raise ValueError("Invalid blob: scalar is not canonical")
     poly = _lagrange_to_monomial(fl.from_canonical(FR, limbs))
     ext = fft(torch.cat([poly, torch.zeros_like(poly)], dim=-1))
@@ -115,12 +117,13 @@ def column_scalars(poly_m: torch.Tensor, cell: int) -> torch.Tensor:
     L, B, n = poly_m.shape
     idx, mask = _toeplitz_gather(n, cell)
     dev = poly_m.device
-    toeplitz = poly_m[..., torch.from_numpy(idx.reshape(-1)).to(dev)].reshape(L, B, cell, idx.shape[1])
-    toeplitz = torch.where(torch.from_numpy(mask).to(dev), toeplitz, torch.zeros_like(toeplitz))
+    toeplitz = poly_m[..., fl.to_device(idx.reshape(-1), dev)].reshape(L, B, cell, idx.shape[1])
+    toeplitz = torch.where(fl.to_device(mask, dev), toeplitz, torch.zeros_like(toeplitz))
     coeffs = fft(toeplitz).transpose(2, 3).contiguous()  # (16, B, 2r, cell)
     return fl.to_canonical(FR, coeffs)
 
 
+@span("kzg.body.fk20")
 def _fk20_body(poly_m: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1XYZZ:
     """FK20 proofs of every cell of monomial polys (16, B, n) (Montgomery)
     against the column tables (24, w, 2r, cell): XYZZ (B, 2r) in
@@ -134,8 +137,8 @@ def _fk20_body(poly_m: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1XYZZ:
 
 def _chunk_cells_proofs(chunk: Sequence[bytes], s: TorchKZGSettings, with_proofs: bool):
     raw = np.frombuffer(b"".join(chunk), dtype=np.uint8).reshape(len(chunk), N, 32)
-    cells, poly = _cells_body(torch.from_numpy(raw.copy()).to(s.device))
-    cells_np = cells.cpu().numpy()
+    cells, poly = _cells_body(fl.to_device(raw.copy(), s.device))
+    cells_np = fl.to_host(cells).numpy()
     out_cells = []
     for b in range(len(chunk)):
         wire = bs.frs_to_bytes(cells_np[:, b, :])
@@ -204,6 +207,7 @@ def _recover_core(cells_nat_m, missing_mask, vanish_coeff_m, shift_pows, unshift
     return fft(recon_coeff), recon_coeff
 
 
+@span("kzg.body.recover")
 def _recover_body(cells_wire, missing_cells, missing_roots, roots_valid, s: TorchKZGSettings):
     """Recovered extensions of B blobs. cells_wire: canonical limbs (16, B,
     8192) in wire order, anything in the missing cells; missing_cells:
@@ -270,10 +274,10 @@ def _recover_inputs(cell_indices: Sequence[int], cell_limbs: np.ndarray, device)
     valid[: len(roots)] = True
     roots += [0] * (K2 // 2 - len(roots))
     return (
-        torch.from_numpy(cell_limbs[:, None, :]).to(device),
-        torch.from_numpy(missing[None]).to(device),
-        torch.from_numpy(fl.ints_to_limbs(roots, FR.n_limbs)[:, None, :]).to(device),
-        torch.from_numpy(valid[None]).to(device),
+        fl.to_device(cell_limbs[:, None, :], device),
+        fl.to_device(missing[None], device),
+        fl.to_device(fl.ints_to_limbs(roots, FR.n_limbs)[:, None, :], device),
+        fl.to_device(valid[None], device),
     )
 
 
@@ -286,10 +290,10 @@ def recover_cells_and_kzg_proofs(
     of 8192)."""
     cell_limbs = _check_recover_inputs(cell_indices, cells_bytes)
     if len(cell_indices) == K2:
-        wire_m = fl.from_canonical(FR, torch.from_numpy(cell_limbs[:, None, :]).to(s.device))
+        wire_m = fl.from_canonical(FR, fl.to_device(cell_limbs[:, None, :], s.device))
         return list(cells_bytes), _proof_bytes(ifft(bit_reverse(wire_m)), s)
     cells, coeffs = _recover_body(*_recover_inputs(cell_indices, cell_limbs, s.device), s)
-    wire = bs.frs_to_bytes(cells[:, 0, :].cpu().numpy())
+    wire = bs.frs_to_bytes(fl.to_host(cells[:, 0, :]).numpy())
     out_cells = [wire[i * BYTES_PER_CELL : (i + 1) * BYTES_PER_CELL] for i in range(K2)]
     return out_cells, _proof_bytes(coeffs, s)
 
@@ -355,12 +359,13 @@ def _cells_to_limbs(cells_bytes: Sequence[bytes], device) -> torch.Tensor:
     """Cell bytes -> canonical limbs (16, count, 64) on `device`; raises if
     a scalar is not canonical."""
     raw = np.frombuffer(b"".join(cells_bytes), dtype=np.uint8).reshape(len(cells_bytes), CELL, 32)
-    limbs, ok = _bytes_to_limbs(torch.from_numpy(raw.copy()).to(device))
-    if not bool(ok.all()):
+    limbs, ok = _bytes_to_limbs(fl.to_device(raw.copy(), device))
+    if not bool(fl.to_host(ok.all())):
         raise ValueError("Invalid cell: scalar not canonical")
     return limbs
 
 
+@span("kzg.body.interp")
 def _agg_cells_core(cells_canon: torch.Tensor, r_limbs: torch.Tensor, cell_indices: torch.Tensor) -> torch.Tensor:
     """Per-column r-weighted cell sums. cells_canon: (16, count, 64)
     canonical limbs; r_limbs: (16, count, 1) canonical; cell_indices:
@@ -375,6 +380,7 @@ def _agg_cells_core(cells_canon: torch.Tensor, r_limbs: torch.Tensor, cell_indic
     return fl.reduce_sums(FR, acc).reshape(L, K2, CELL)
 
 
+@span("kzg.body.interp")
 def _interp_poly_core(agg_m: torch.Tensor, inv_shift_pows: torch.Tensor) -> torch.Tensor:
     """The aggregated interpolation polynomial (16, 64), Montgomery: per
     column, the inverse FFT of 64 of its sums (wire order, so bit-reversed
@@ -415,15 +421,16 @@ def _verify_cell_inputs(unique_cb, commitment_indices, cell_indices, cells_bytes
     sc2 = np.stack([r_limbs, fl.ints_to_limbs(weighted_r, FR.n_limbs)], axis=1)
     return (
         dg1.repeat_batch(proofs, 2),
-        torch.from_numpy(sc2).to(device),
+        fl.to_device(sc2, device),
         commitments,
-        torch.from_numpy(fl.ints_to_limbs(weights, FR.n_limbs)).to(device),
+        fl.to_device(fl.ints_to_limbs(weights, FR.n_limbs), device),
         cells,
-        torch.from_numpy(r_limbs[:, :, None]).to(device),
-        torch.tensor(list(cell_indices), dtype=torch.int64, device=device),
+        fl.to_device(r_limbs[:, :, None], device),
+        fl.to_device(np.array(cell_indices, dtype=np.int64), device),
     )
 
 
+@span("kzg.body.verify_cells")
 def _verify_cell_body(p2, sc2, commitments, weights, cells, r_limbs, cell_indices, s: TorchKZGSettings) -> dg1.G1Aff:
     """The device side of verify_cell_kzg_proof_batch (the inputs of
     _verify_cell_inputs): the batch-2 proof MSM, the commitment MSM and the

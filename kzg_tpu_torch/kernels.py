@@ -23,6 +23,8 @@ import threading
 from types import SimpleNamespace
 from typing import Optional
 
+from .tracing import span
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -104,16 +106,21 @@ def build() -> str:
 def load() -> SimpleNamespace:
     """The kernel launchers, built on first use, with their C signatures:
     one attribute per launcher, whichever library holds it."""
-    global _lib
     with _lock:
-        if _lib is None:
-            build()
-            libs = {s: ctypes.CDLL(library_path(s)) for s in SOURCES}
-            fns = {}
-            for name, (argtypes, src) in SIGNATURES.items():
-                fn = getattr(libs[src], name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[name] = fn
-            _lib = SimpleNamespace(**fns)
-        return _lib
+        return _lib if _lib is not None else _first_load()
+
+
+@span("kzg.settings.kernels")
+def _first_load() -> SimpleNamespace:
+    """Build what is not built yet and bind every launcher (under _lock)."""
+    global _lib
+    build()
+    libs = {s: ctypes.CDLL(library_path(s)) for s in SOURCES}
+    fns = {}
+    for name, (argtypes, src) in SIGNATURES.items():
+        fn = getattr(libs[src], name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    _lib = SimpleNamespace(**fns)
+    return _lib

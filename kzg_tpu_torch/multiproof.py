@@ -30,8 +30,10 @@ from .ops.fft import ifft
 from .ops.field import FR
 from .ops.poly import poly_fast_div
 from .settings import TorchKZGSettings
+from .tracing import span
 
 
+@span("kzg.body.proof_multi")
 def _proof_multi_body(num_m: torch.Tensor, den_m: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1Aff:
     """q = num / den (16, 1, ...), Montgomery, committed on the table (its
     columns past q's length take zero scalars): the affine proof point."""
@@ -40,6 +42,7 @@ def _proof_multi_body(num_m: torch.Tensor, den_m: torch.Tensor, table: dmsm.Fixe
     return dg1.to_affine(dmsm.msm_fixed(table, q_can))
 
 
+@span("kzg.body.interp_commit")
 def _interp_commit_body(ys_m: torch.Tensor, xinv_pows_m: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1Aff:
     """The commitment to the polynomial through the values ys_m (16, 1, n)
     on the coset x <w_n>: its coefficients are the inverse FFT of the

@@ -8,7 +8,8 @@ and the host CPU.
 The committed prebuilt binary is never loaded: it was compiled with
 -march=native on another host. Processes that build at once serialise on a lock file
 and the library is moved into place whole. A failed build raises; there is
-no fallback.
+no fallback. Each function that calls into the library is the span
+`kzg.native.<function>` (tracing.py).
 """
 
 import ctypes
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from typing import List, Optional, Tuple
+
+from .tracing import span
 
 Affine = Optional[Tuple[int, int]]
 
@@ -118,6 +121,7 @@ def _g2_to_bytes_raw(pt) -> Tuple[bytes, int]:
     return x[0].to_bytes(48, "big") + x[1].to_bytes(48, "big") + y[0].to_bytes(48, "big") + y[1].to_bytes(48, "big"), 0
 
 
+@span("kzg.native.g1_decompress_batch")
 def g1_decompress_batch(compressed: bytes, subgroup_check: bool = True) -> List[Affine]:
     """48n bytes -> affine points (None = infinity). Raises ValueError
     naming the first invalid point."""
@@ -133,6 +137,7 @@ def g1_decompress_batch(compressed: bytes, subgroup_check: bool = True) -> List[
     return [_xy_to_point(raw[96 * i : 96 * (i + 1)], infs.raw[i]) for i in range(n)]
 
 
+@span("kzg.native.g2_decompress_batch")
 def g2_decompress_batch(compressed: bytes, subgroup_check: bool = True) -> list:
     n = len(compressed) // 96
     if len(compressed) != 96 * n:
@@ -154,6 +159,7 @@ def g2_decompress_batch(compressed: bytes, subgroup_check: bool = True) -> list:
     return pts
 
 
+@span("kzg.native.g1_compress_batch")
 def g1_compress_batch(points: List[Affine]) -> List[bytes]:
     n = len(points)
     xy = bytearray(96 * n)
@@ -169,6 +175,7 @@ def g1_compress_batch(points: List[Affine]) -> List[bytes]:
     return [out.raw[48 * i : 48 * (i + 1)] for i in range(n)]
 
 
+@span("kzg.native.pairings_verify")
 def pairings_verify(a1: Affine, a2, b1: Affine, b2) -> bool:
     """e(a1, a2) == e(b1, b2)."""
     a1b, a1i = _point_to_xy(a1)
@@ -181,6 +188,7 @@ def pairings_verify(a1: Affine, a2, b1: Affine, b2) -> bool:
     return rc == 1
 
 
+@span("kzg.native.g1_mul")
 def g1_mul(pt: Affine, scalar: int) -> Affine:
     b, inf = _point_to_xy(pt)
     out = ctypes.create_string_buffer(96)
@@ -190,6 +198,7 @@ def g1_mul(pt: Affine, scalar: int) -> Affine:
     return None if rc == 1 else _xy_to_point(out.raw, 0)
 
 
+@span("kzg.native.g1_add")
 def g1_add(p: Affine, q: Affine) -> Affine:
     pb, pi = _point_to_xy(p)
     qb, qi = _point_to_xy(q)

@@ -17,7 +17,7 @@ tile is the JAX package's fft_body.
 A wrapper runs its plain version (`*_ref`) for tensors on the CPU. For a
 CUDA tensor it launches the kernel, or raises: nothing falls back. Each
 wrapper checks device, dtype, shape and contiguity, and counts its launches
-in the registry of ops/launch.py.
+in the tracing registry (tracing.py).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from ..constants import R_MOD as R, root_of_unity
 from . import field as fl
+from .. import tracing
 from . import launch
 from .field import FR
 
@@ -48,7 +49,7 @@ def brp_indices(n: int) -> np.ndarray:
 
 def bit_reverse(x: torch.Tensor) -> torch.Tensor:
     """The bit-reversal permutation along the last axis (a power of two)."""
-    return x[..., torch.from_numpy(brp_indices(x.shape[-1])).to(x.device)]
+    return x[..., fl.to_device(brp_indices(x.shape[-1]), x.device)]
 
 
 def tile_stages(log_n: int) -> int:
@@ -159,7 +160,7 @@ def ntt_tile(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), _twiddle_words(log_n, inverse, str(dev)).data_ptr(),
         None if scale is None else scale.data_ptr(), log_n, B * n, launch.stream(),
     )
-    ntt_tile.launches += 1
+    tracing.count("launch.ntt_tile")
     launch.check_launch(rc, "ntt_tile")
     return out
 
@@ -182,6 +183,6 @@ def ntt_stage(x: torch.Tensor, s: int, inverse: bool = False) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), _twiddle_words(log_n, inverse, str(dev)).data_ptr(),
         log_n, s, B * n, launch.stream(),
     )
-    ntt_stage.launches += 1
+    tracing.count("launch.ntt_stage")
     launch.check_launch(rc, "ntt_stage")
     return out

@@ -14,7 +14,7 @@ chip_smoke.py and the benches.
 The wrapper runs the plain version for tensors on the CPU. For a CUDA
 tensor it launches the kernel, or raises: nothing falls back. It checks
 device, dtype, shape and contiguity, and counts its launches in the
-registry of ops/launch.py. An index outside [0, R) raises IndexError: the
+tracing registry (tracing.py). An index outside [0, R) raises IndexError: the
 kernel writes that row as zeros and sets a flag on the card, which the
 wrapper reads, so a call waits for the card. A caller that queues many
 launches (the benches) passes its own `flag` instead: the call then returns
@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from . import launch
 
 MAX_WIDTH = 4096  # words per row the kernel takes (its reciprocal stays exact)
@@ -86,7 +87,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, flag: Optional[torch.Ten
     rc = launch.kernels().kzg_gather_rows(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), flag.data_ptr(), R, E, width, launch.stream()
     )
-    gather_rows.launches += 1
+    tracing.count("launch.gather_rows")
     launch.check_launch(rc, "gather_rows")
     if own:
         raise_if_flagged(flag)

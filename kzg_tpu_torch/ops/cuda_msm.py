@@ -11,7 +11,7 @@ version. The counterpart of the JAX package's ops/pallas_msm.py.
 A wrapper runs its plain version (`*_ref`) for tensors on the CPU. For a
 CUDA tensor it launches the kernel, or raises: nothing falls back. Each
 wrapper checks device, dtype, shape and contiguity, and raises on anything
-else. Each counts its launches in the registry of ops/launch.py.
+else. Each counts its launches in the tracing registry (tracing.py).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 from . import field as fl
 from . import g1
+from .. import tracing
 from . import launch
 from .field import FP
 
@@ -116,7 +117,7 @@ def seg_scan_phase1_mem(rows: torch.Tensor, idx: torch.Tensor, first: torch.Tens
         rows.data_ptr(), idx.data_ptr(), first.data_ptr(), *(o.data_ptr() for o in out),
         K, m, launch.stream(),
     )
-    seg_scan_phase1_mem.launches += 1
+    tracing.count("launch.seg_scan_phase1")
     launch.check_launch(rc, "seg_scan_phase1")
     return g1.G1XYZZ(*out)
 
@@ -148,7 +149,7 @@ def add_points(p: g1.G1XYZZ, q: g1.G1XYZZ) -> g1.G1XYZZ:
     rc = launch.kernels().kzg_add_unified(
         *(c.data_ptr() for c in (*p, *q)), *(o.data_ptr() for o in out), M, launch.stream()
     )
-    add_points.launches += 1
+    tracing.count("launch.add_unified")
     launch.check_launch(rc, "add_unified")
     return g1.G1XYZZ(*out)
 
@@ -192,6 +193,6 @@ def horner_windows(win: g1.G1XYZZ, c: int) -> g1.G1XYZZ:
     rc = launch.kernels().kzg_horner(
         *(t.data_ptr() for t in win), *(o.data_ptr() for o in out), nb, w, c, launch.stream()
     )
-    horner_windows.launches += 1
+    tracing.count("launch.horner")
     launch.check_launch(rc, "horner")
     return g1.G1XYZZ(*out)

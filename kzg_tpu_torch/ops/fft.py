@@ -13,10 +13,12 @@ PyTorch versions.
 
 import torch
 
+from .. import tracing
 from . import cuda_fft
 from .cuda_fft import bit_reverse, brp_indices  # noqa: F401  (re-exported)
 
 
+@tracing.span("kzg.ntt")
 def fft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """FFT along the last axis (n a power of two) of Montgomery-form Fr
     limbs (16, *batch, n); the inverse includes the 1/n scale."""

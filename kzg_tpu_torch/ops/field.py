@@ -24,6 +24,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import (
     FP_LIMBS,
     FP_N0_INV,
@@ -39,6 +40,26 @@ from ..constants import (
 
 LIMB_DTYPE = torch.int32
 _W = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# Copies between the host and the device. PyTorch synchronizes the stream
+# around a copy between pageable host memory and the card, so each is a
+# point where the host waits for the card: the span kzg.wait.
+# ---------------------------------------------------------------------------
+
+
+@tracing.span(tracing.WAIT)
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device` (on the CPU, the array's own
+    memory)."""
+    return torch.from_numpy(a).to(device)
+
+
+@tracing.span(tracing.WAIT)
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's copy on the CPU (the tensor itself if it is there)."""
+    return t.cpu()
 
 
 def int_to_limbs(v: int, n_limbs: int) -> np.ndarray:
@@ -60,7 +81,7 @@ def ints_to_limbs(vs, n_limbs: int) -> np.ndarray:
 def limbs_to_ints(a) -> List[int]:
     """(L, *batch) limbs (tensor or array) -> flat list of python ints."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = to_host(a.detach()).numpy()
     a = np.asarray(a).astype(np.uint64)
     flat = a.reshape(a.shape[0], -1)
     out = []
@@ -108,7 +129,7 @@ class FieldSpec:
 
     def encode(self, vs, device) -> torch.Tensor:
         """Python ints -> Montgomery-form (L, B) limb tensor on `device`."""
-        return torch.from_numpy(self.encode_host(vs)).to(device)
+        return to_device(self.encode_host(vs), device)
 
     @cached_property
     def r_inv(self) -> int:
@@ -439,7 +460,7 @@ def mul_many(spec: FieldSpec, pairs):
 
 def mul_const(spec: FieldSpec, a, c_mont: np.ndarray) -> torch.Tensor:
     """Multiply a batch by one Montgomery-form constant."""
-    c = torch.from_numpy(np.asarray(c_mont, dtype=np.int32)).to(a.device)
+    c = to_device(np.asarray(c_mont, dtype=np.int32), a.device)
     return mont_mul(spec, a, c.reshape((spec.n_limbs,) + (1,) * (a.dim() - 1)))
 
 
@@ -476,8 +497,11 @@ def pow_fixed(spec: FieldSpec, a, exponent: int) -> torch.Tensor:
     return one_like(spec, a).clone() if acc is None else acc
 
 
+@tracing.span("kzg.inv")
 def inv(spec: FieldSpec, a) -> torch.Tensor:
-    """Fermat inverse a^(m-2); maps 0 to 0."""
+    """Fermat inverse a^(m-2); maps 0 to 0. Counted in the tracing
+    registry as `field.inversions`."""
+    tracing.count("field.inversions")
     return pow_fixed(spec, a, spec.modulus - 2)
 
 
@@ -521,7 +545,7 @@ def to_canonical(spec: FieldSpec, a) -> torch.Tensor:
     """Montgomery form -> canonical limbs (a Montgomery product with 1)."""
     one_raw = np.zeros(spec.n_limbs, dtype=np.int32)
     one_raw[0] = 1
-    c = torch.from_numpy(one_raw).to(a.device)
+    c = to_device(one_raw, a.device)
     return mont_mul(spec, a, c.reshape((spec.n_limbs,) + (1,) * (a.dim() - 1)))
 
 

@@ -18,8 +18,10 @@ whatever the batch size; on a CPU tensor it runs `add_unified_plain`.
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .. import tracing
 from . import cuda_msm
 from . import field as fl
 from .field import FP
@@ -175,8 +177,10 @@ def repeat_batch(a: G1Aff, k: int) -> G1Aff:
     )
 
 
+@tracing.span("kzg.body.to_affine")
 def to_affine(p: G1XYZZ) -> G1Aff:
-    """Batch conversion to affine through one shared inversion."""
+    """Batch conversion to affine through one shared inversion (a protocol
+    body's own glue wherever it is called)."""
     inf = is_inf(p)
     t = fl.mont_mul(FP, p.zz, p.zzz)
     batch = t.shape[1:]
@@ -230,6 +234,7 @@ def scalar_mul(a: G1Aff, scalar_limbs: torch.Tensor, nbits: int = 255) -> G1XYZZ
     return acc
 
 
+@tracing.span("kzg.msm.var")
 def msm_ladder(points: G1Aff, scalar_limbs: torch.Tensor) -> G1XYZZ:
     """MSM for small n: the per-lane ladder, then a tree reduction along the
     last axis. Returns (..., 1)."""
@@ -245,7 +250,7 @@ def affine_from_ints(points, device) -> G1Aff:
     """List of affine points ((x, y) ints or None) -> limb batch."""
     xs = [0 if p is None else p[0] for p in points]
     ys = [0 if p is None else p[1] for p in points]
-    inf = torch.tensor([p is None for p in points], dtype=torch.bool, device=device)
+    inf = fl.to_device(np.array([p is None for p in points], dtype=bool), device)
     return G1Aff(FP.encode(xs, device), FP.encode(ys, device), inf)
 
 
@@ -253,7 +258,7 @@ def affine_to_ints(a: G1Aff):
     """Affine batch -> list of affine points (None = infinity)."""
     xs = FP.decode(a.x)
     ys = FP.decode(a.y)
-    infs = a.inf.reshape(-1).cpu().tolist()
+    infs = fl.to_host(a.inf.reshape(-1)).tolist()
     return [None if i else (x, y) for x, y, i in zip(xs, ys, infs)]
 
 

@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..constants import (
     BLS_X,
     G1_GENERATOR_X,
@@ -148,7 +148,7 @@ def _ladder(tables, digit_sets) -> G1XYZZ:
 
 
 def _on(dev, digits: np.ndarray, signs: np.ndarray):
-    return torch.from_numpy(digits).to(dev), torch.from_numpy(signs).to(dev)
+    return fl.to_device(digits, dev), fl.to_device(signs, dev)
 
 
 def _mul_fixed_scalars(p: G1XYZZ, digits: np.ndarray, signs: np.ndarray) -> G1XYZZ:
@@ -163,7 +163,7 @@ def _mul_fixed_scalars_glv(p: G1XYZZ, digs1, sgns1, digs2, sgns2) -> G1XYZZ:
     one table of multiples shared by both halves (phi maps the multiples
     for one product per point: x *= beta)."""
     mult = _multiples(p, 1 << (TWIDDLE_WINDOW - 1))
-    beta = torch.from_numpy(FP.const(glv_beta())).to(p.x.device)
+    beta = fl.to_device(FP.const(glv_beta()), p.x.device)
     beta = beta.reshape((FP.n_limbs,) + (1,) * (mult.x.dim() - 1))
     mult_phi = G1XYZZ(fl.mont_mul(FP, mult.x, beta), mult.y, mult.zz, mult.zzz)
     dev = p.x.device
@@ -181,6 +181,7 @@ def _ifft_scale(p: G1XYZZ, ninv: int) -> G1XYZZ:
     return _mul_fixed_scalars(p, digits, signs)  # (w, 1) broadcasts over the lanes
 
 
+@tracing.span("kzg.g1fft")
 def fft_g1(p: G1XYZZ, inverse: bool = False) -> G1XYZZ:
     """Radix-2 FFT over G1 along the last axis (n a power of two), the
     inverse with the inverse roots and the 1/n scale. Stage 0's twiddle is
@@ -230,6 +231,7 @@ def _half_conv_taps(n: int):
     return np.array(offsets, dtype=np.int64), d1, s1, d2, s2
 
 
+@tracing.span("kzg.g1fft")
 def fk20_half_convolution(h_ext: G1XYZZ) -> G1XYZZ:
     """fft_g1(zero_top_half(ifft_g1(h_ext))) along the last axis as ONE
     circulant convolution with n/2 + 1 fixed taps:
@@ -238,7 +240,7 @@ def fk20_half_convolution(h_ext: G1XYZZ) -> G1XYZZ:
     offsets, d1, s1, d2, s2 = _half_conv_taps(n)
     taps = offsets.shape[0]
     src = (np.arange(n)[:, None] - offsets[None, :]) % n  # (n, taps)
-    src = torch.from_numpy(src.reshape(-1)).to(h_ext.x.device)
+    src = fl.to_device(src.reshape(-1), h_ext.x.device)
     gathered = map_coords(lambda c: c[..., src], h_ext)  # (..., n * taps)
 
     def tile(t):  # (w, taps) -> (w, n * taps), lane k * taps + d

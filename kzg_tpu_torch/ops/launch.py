@@ -1,38 +1,18 @@
-"""What the kernel wrappers (ops/cuda_msm.py, ops/cuda_fft.py) share: their
-input checks, the launch check, the current stream, the kernel library,
-and one registry of launch counts over every kernel.
+"""What the kernel wrappers (ops/cuda_msm.py, ops/cuda_fft.py,
+ops/cuda_gather.py) share: their input checks, the launch check, the
+current stream and the kernel library.
 
-Each wrapper is registered under its kernel's name and carries a plain
-integer `.launches` that it increments where it launches its kernel, and
-nowhere else; `reset_launches()` zeroes them all and `launches()` reads
-them, so a run can show which kernels it went through.
+The launch counts live in the package's tracing registry (tracing.py), as
+counters `launch.<kernel>`; `counted`, `launches`, `reset_launches` and
+`WRAPPERS` (kernel name -> wrapper) are its names for them here.
 """
 
 from __future__ import annotations
 
 import torch
 
-WRAPPERS = {}
-
-
-def counted(name: str):
-    """Register a kernel wrapper under `name`, with its count at 0."""
-
-    def register(fn):
-        fn.launches = 0
-        WRAPPERS[name] = fn
-        return fn
-
-    return register
-
-
-def reset_launches() -> None:
-    for w in WRAPPERS.values():
-        w.launches = 0
-
-
-def launches() -> dict:
-    return {name: w.launches for name, w in WRAPPERS.items()}
+from ..tracing import LAUNCHES as WRAPPERS  # noqa: F401  (read by chip_smoke.py)
+from ..tracing import counted, launches, reset_launches  # noqa: F401
 
 
 def stream() -> int:

@@ -16,7 +16,9 @@ segmented scan. The counterpart of the JAX package's ops/msm.py, fixed-base
      sums combine high to low by c doublings and one addition each (kernel
      B3 on the card).
 Leading batch dims of the scalars are independent MSMs folded into the
-sort key.
+sort key. Spans (tracing.py): kzg.msm.fixed and kzg.msm.var around each
+MSM, kzg.msm.scan (step 2), kzg.msm.integrate (step 3), kzg.msm.combine
+(step 4, variable base).
 """
 
 from typing import NamedTuple, Optional
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from . import cuda_msm
 from . import field as fl
 from . import g1
@@ -184,6 +187,7 @@ def _chunk_layout(sorted_keys: torch.Tensor, src_sorted: torch.Tensor) -> ScanLa
     return ScanLayout(idx, fl2.T.contiguous(), fl2, last.reshape(m, K), sorted_keys, K, m)
 
 
+@tracing.span("kzg.msm.scan")
 def _bucket_sums_mem(rows_packed: torch.Tensor, lay: ScanLayout, n_keys: int) -> G1XYZZ:
     """Sums of the rows sharing a key, from the sorted layout. Returns
     (24, n_keys) XYZZ sums (identity for empty keys)."""
@@ -236,6 +240,7 @@ def _dbl_n(p: G1XYZZ, n: int) -> G1XYZZ:
     return p
 
 
+@tracing.span("kzg.msm.integrate")
 def integrate_buckets(buckets: G1XYZZ) -> G1XYZZ:
     """sum_b b * buckets[..., b] over the last axis (index 0 has weight 0).
     With b = hi * G + lo (G about sqrt(B)): G * sum_hi hi A_hi +
@@ -345,6 +350,7 @@ def phase1_inputs(table: FixedBaseTable, scalars: torch.Tensor):
     return rows_packed, lay.idx, lay.first
 
 
+@tracing.span("kzg.msm.fixed")
 def msm_fixed(table: FixedBaseTable, scalars: torch.Tensor) -> G1XYZZ:
     """Fixed-base MSM: scalars are canonical Fr limbs (16, *batch, n) with
     n == table.n, on the table's device; batch dims are independent MSMs,
@@ -360,6 +366,7 @@ def msm_fixed(table: FixedBaseTable, scalars: torch.Tensor) -> G1XYZZ:
 # ---------------------------------------------------------------------------
 
 
+@tracing.span("kzg.msm.var")
 def msm(points: G1Aff, scalars: torch.Tensor, c: Optional[int] = None) -> G1XYZZ:
     """Variable-base MSM. points: affine (24, *batch, n); scalars: canonical
     Fr limbs (16, *batch, n), on the points' device. Returns XYZZ sums of
@@ -411,8 +418,11 @@ def window_sums(points: G1Aff, scalars: torch.Tensor, c: int) -> G1XYZZ:
     return map_coords(lambda cc: cc[..., 0].contiguous(), integrate_buckets(buckets))
 
 
+@tracing.span("kzg.msm.var")
 def msm_core(points: G1Aff, scalars: torch.Tensor, c: int) -> G1XYZZ:
     """The variable-base MSM's bucket path at window c, whatever n: the
     window sums, then their combination through the B3 wrapper."""
-    acc = cuda_msm.horner_windows(window_sums(points, scalars, c), c)  # (24, nb)
+    win = window_sums(points, scalars, c)
+    with tracing.span("kzg.msm.combine"):
+        acc = cuda_msm.horner_windows(win, c)  # (24, nb)
     return map_coords(lambda cc: cc.reshape((FP.n_limbs,) + tuple(points.x.shape[1:-1])), acc)

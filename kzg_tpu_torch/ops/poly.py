@@ -44,7 +44,7 @@ def poly_inverse(a: torch.Tensor, out_len: int) -> torch.Tensor:
     Newton doubling: acc <- acc (2 - a acc) mod X^k for k = 2, 4, ...
     a[..., 0] must be invertible."""
     acc, _ = fl.batch_inv_tree(FR, a[..., :1])
-    two = torch.from_numpy(FR.const(2)).to(a.device).reshape((L,) + (1,) * (a.dim() - 1))
+    two = fl.to_device(FR.const(2), a.device).reshape((L,) + (1,) * (a.dim() - 1))
     k = 1
     while k < out_len:
         k = min(2 * k, out_len)

@@ -9,7 +9,9 @@ of unity of the setup's FFT domain (max_width) as Python ints, in the
 three orders of the C ABI's settings arrays.
 
 Entry points run on the card unless the caller names another device: with
-no device given and no card present, `resolve_device` raises.
+no device given and no card present, `resolve_device` raises. Spans
+(tracing.py): kzg.settings.load, and kzg.table.<name>.load or .build
+wherever a table or constant is read from the cache or built.
 """
 
 import hashlib
@@ -34,6 +36,7 @@ from .ops import g1 as dg1
 from .ops import g1fft
 from .ops import msm as dmsm
 from .ops.field import FR
+from .tracing import span
 from .trusted_setup import TrustedSetup, brp_roots_of_unity, load_trusted_setup_file, reverse_bit_order
 
 _TABLE_FORMAT_VERSION = 1
@@ -82,22 +85,23 @@ def table_cache_path(points, tag: str, c: int) -> str:
     )
 
 
-def _xyinf_cached(path: str, build, device: torch.device):
-    """(x, y, inf) tensors from the disk cache file `path`, or from
-    build() (on `device`), then written there. The file is written whole
-    (temporary name, then rename), so concurrent processes never read a
-    partial one."""
+def _xyinf_cached(name: str, path: str, build, device: torch.device):
+    """(x, y, inf) tensors of the table `name` from the disk cache file
+    `path`, or from build() (on `device`), then written there. The file is
+    written whole (temporary name, then rename), so concurrent processes
+    never read a partial one."""
     if os.path.exists(path):
-        with np.load(path) as data:
+        with span(f"kzg.table.{name}.load"), np.load(path) as data:
             return tuple(torch.from_numpy(data[k]).to(device) for k in ("x", "y", "inf"))
-    x, y, inf = build()
-    try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp.npz"
-        np.savez(tmp, x=x.cpu().numpy(), y=y.cpu().numpy(), inf=inf.cpu().numpy())
-        os.replace(tmp, path)
-    except OSError:
-        pass  # a cache that cannot be written only costs the next process a rebuild
+    with span(f"kzg.table.{name}.build"):
+        x, y, inf = build()
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp.npz"
+            np.savez(tmp, x=x.cpu().numpy(), y=y.cpu().numpy(), inf=inf.cpu().numpy())
+            os.replace(tmp, path)
+        except OSError:
+            pass  # a cache that cannot be written only costs the next process a rebuild
     return x, y, inf
 
 
@@ -110,7 +114,7 @@ def build_table_cached(points, tag: str, device: torch.device, c: Optional[int] 
     def build():
         return dmsm.build_fixed_base_table(dg1.affine_from_ints(points, device), c=c)[:3]
 
-    return dmsm.FixedBaseTable(*_xyinf_cached(table_cache_path(points, tag, c), build, device), c)
+    return dmsm.FixedBaseTable(*_xyinf_cached(tag, table_cache_path(points, tag, c), build, device), c)
 
 
 def build_x_ext_fft_columns(g1_monomial, n2: int, chunk_len: int, device: torch.device) -> dg1.G1Aff:
@@ -168,7 +172,7 @@ class TorchKZGSettings:
             return build_x_ext_fft_columns(g1m, 2 * len(g1m), self.cell_size, self.device)
 
         path = table_cache_path(g1m, "x_ext_fft_columns", 0)
-        return dg1.G1Aff(*_xyinf_cached(path, build, self.device))
+        return dg1.G1Aff(*_xyinf_cached("x_ext_fft_columns", path, build, self.device))
 
     def fk20_columns(self, n2: int, chunk_len: int) -> dg1.G1Aff:
         """The legacy FK20 files at (n2, chunk_len), affine (24, n2 /
@@ -184,7 +188,7 @@ class TorchKZGSettings:
             return build_x_ext_fft_columns(g1m, n2, chunk_len, self.device)
 
         path = table_cache_path(g1m, f"fk20_columns.{n2}", chunk_len)
-        return dg1.G1Aff(*_xyinf_cached(path, build, self.device))
+        return dg1.G1Aff(*_xyinf_cached(f"fk20_columns.{n2}.{chunk_len}", path, build, self.device))
 
     @cached_property
     def column_tables(self) -> dmsm.FixedBaseTable:
@@ -195,7 +199,7 @@ class TorchKZGSettings:
             return dmsm.build_fixed_base_table(self.x_ext_fft_columns, c=COLUMN_WINDOW)[:3]
 
         path = table_cache_path(self.setup.g1_monomial, "x_ext_columns", COLUMN_WINDOW)
-        return dmsm.FixedBaseTable(*_xyinf_cached(path, build, self.device), COLUMN_WINDOW)
+        return dmsm.FixedBaseTable(*_xyinf_cached("x_ext_columns", path, build, self.device), COLUMN_WINDOW)
 
     @cached_property
     def roots_of_unity(self) -> List[int]:
@@ -218,11 +222,13 @@ class TorchKZGSettings:
         return self.roots_of_unity[::-1]
 
     @cached_property
+    @span("kzg.table.roots_brp_mont.build")
     def roots_brp_mont(self) -> torch.Tensor:
         """Bit-reversed 4096 roots of unity, Montgomery form, (16, 4096)."""
         return FR.encode(brp_roots_of_unity(FIELD_ELEMENTS_PER_BLOB), self.device)
 
     @cached_property
+    @span("kzg.table.inv_coset_shift_pows.build")
     def inv_coset_shift_pows(self) -> torch.Tensor:
         """The cell verifier's inverse coset-shift powers, Montgomery form
         (16, 128, 64): column col holds h^-k for k < 64, h^-1 = w^(8192 -
@@ -241,6 +247,7 @@ class TorchKZGSettings:
         return torch.from_numpy(FR.encode_host(vals).reshape(shape)).to(self.device)
 
     @cached_property
+    @span("kzg.table.recovery_shift_pows.build")
     def recovery_shift_pows(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Erasure recovery's coset powers, Montgomery form, (16, 8192)
         each: k^i and k^-i for i < 8192, k = RECOVERY_SHIFT_FACTOR."""
@@ -287,6 +294,7 @@ def trusted_setup_path() -> str:
     raise FileNotFoundError("trusted_setup.txt not found: set KZG_TPU_TRUSTED_SETUP or pass a path")
 
 
+@span("kzg.settings.load")
 def load_settings(path: Optional[str] = None, device=None) -> TorchKZGSettings:
     """Settings from a trusted setup file (`trusted_setup_path()` when
     `path` is None) on `device` (the card when None)."""
