@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero, and the result line is not printed):
   1. card and builds: the card's name and power limit, torch and CUDA
      versions; build the CUDA kernels (one nvcc per source; registers and
-     spills printed, and B1, B2 and B3 must not spill), the native host
+     spills printed; B1, B2, B3 and B7 must not spill, and B7 has no
+     stack), the native host
      core and the C ABI (the embedded-interpreter shim and the C test
      program), all at the same time;
   2. the main paths at full protocol width, through the public API, with
@@ -68,7 +69,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
      B6 word for word at the probe's shape, at the MSM's (batch 8, 25-word
      rows) and on edge cases (first and last rows, repeated indices, a
      ragged count, widths 24 and 25, an unaligned table), and an index out
-     of range raises;
+     of range raises; B7 (the Fermat inversion) against pow_fixed on the
+     first input of each field and shape that the main path's calls gave
+     it, recorded while they ran, and on 0, 1 and m - 1 among 1152 lanes;
+     the commit, prove and verify calls launched B7 once per counted
+     inversion;
   4. checks of the results: known answers from the setup file's own bytes
      (unit blobs commit to Lagrange points; blobs of x^(64 + k) have known
      cells and known proofs), a commitment and a proof against the CPU path
@@ -84,7 +89,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      doubles) beside the earlier design's 17; B2 at 32,768, 133,120 and
      256 lanes; B3 at both verify shapes, with its latency bounds (product
      rounds, and one thread's products as in the earlier design); B4 and
-     B5 at each launch of one cells call;
+     B5 at each launch of one cells call; B7 at each field and shape the
+     main path gave it, with its latency bound (the chain of dependent
+     products at one multiply-add a clock);
   6. multi-device, in ranks of one gloo process group started in processes
      of their own by kzg_tpu_torch.parallel.dryrun.launch, every rank on
      this card (NCCL refuses two ranks on one card): 2 ranks on
@@ -123,7 +130,8 @@ N_SAMPLE_COLUMNS = 8  # a sampling node's columns (PeerDAS custody of 8 of 128)
 BENCH_BATCH, BENCH_ITERS = 8, 3  # the headline bench's batch, cut to 3 iterations
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
-NO_SPILL = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel")  # B1-B3: ptxas must report no spills
+NO_SPILL = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel", "field_inv_kernel")  # B1-B3, B7: ptxas must report no spills
+NO_STACK = ("field_inv_kernel",)  # B7: ptxas must report no stack frame
 
 
 class SmokeFailure(Exception):
@@ -193,11 +201,14 @@ def build_all():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
         if entry and "spill" in line:
-            spills[entry] = line.strip()
-    # B1, B2 and B3 keep every value in registers or shared memory
+            spills.setdefault(entry, []).append(line.strip())
+    # B1, B2, B3 and B7 (each of its instances) keep every value in
+    # registers or shared memory
     for k in NO_SPILL:
         check(k in spills, f"ptxas reported no spill line for {k}")
-        check(spills[k].endswith(" 0 bytes spill stores, 0 bytes spill loads"), f"ptxas spills in {k}: {spills[k]}")
+        for line in spills[k]:
+            check(line.endswith(" 0 bytes spill stores, 0 bytes spill loads"), f"ptxas spills in {k}: {line}")
+            check(k not in NO_STACK or line.startswith("0 bytes stack frame"), f"ptxas stack frame in {k}: {line}")
 
 
 def shape_key(args):
@@ -502,7 +513,7 @@ def main() -> int:
     sys.path.insert(0, repo)
     import numpy as np
 
-    from kzg_tpu_torch import api, bench, c_abi, c_abi_build, eip4844, eip7594, fk20, native, settings, trusted_setup
+    from kzg_tpu_torch import api, bench, c_abi, c_abi_build, eip4844, eip7594, fk20, native, settings, tracing, trusted_setup
     from kzg_tpu_torch.benches import gather_micro, msm_stages
     from kzg_tpu_torch.benches.common import device_ms as cuda_ms
     from kzg_tpu_torch.constants import P_MOD, R_MOD as R
@@ -553,20 +564,32 @@ def main() -> int:
     blobs = [random_blob() for _ in range(N_BLOBS)]
     main_launches = {}
 
-    def counted_call(label, fn):
+    def counted_call(label, fn, inverts=False):
+        """The call, its wall and its kernel launches; with `inverts`, it
+        must have launched B7 once for each inversion it counted."""
         launch.reset_launches()
+        inversions = tracing.counters().get("field.inversions", 0)
         out, secs = timed(fn)
         counts = launch.launches()
+        inversions = tracing.counters().get("field.inversions", 0) - inversions
         for name, k in counts.items():
             main_launches[name] = main_launches.get(name, 0) + k
-        log(f"{label}: {secs:.3f} s; launches {counts}")
+        log(f"{label}: {secs:.3f} s; launches {counts}; inversions {inversions}")
+        if inverts:
+            check(inversions > 0 and counts["field_inv"] == inversions,
+                  f"{label}: {counts['field_inv']} launches of field_inv for {inversions} inversions")
         return out, counts, secs
 
+    # B7's first input of each field and shape on the main path's calls,
+    # held against its plain version in section 3
+    inv_inputs = {}
+    inv_recording = Recording(fl, "inv", inv_inputs)
+
     commits, launches_commit, _ = counted_call(
-        f"commit {N_BLOBS} blobs", lambda: api.blob_to_kzg_commitment_batch(blobs, s)
+        f"commit {N_BLOBS} blobs", lambda: api.blob_to_kzg_commitment_batch(blobs, s), inverts=True
     )
     proofs, launches_prove, _ = counted_call(
-        f"prove {N_BLOBS} blobs", lambda: api.compute_blob_kzg_proof_batch(blobs, commits, s)
+        f"prove {N_BLOBS} blobs", lambda: api.compute_blob_kzg_proof_batch(blobs, commits, s), inverts=True
     )
     peak_mem = torch.cuda.max_memory_allocated()
     for name in ("seg_scan_phase1", "add_unified"):
@@ -622,7 +645,8 @@ def main() -> int:
     verify_walls, verify_peaks, verify_launches = {}, {}, {}
     for count, (cb, idx, cl, pr) in verify_cases.items():
         torch.cuda.reset_peak_memory_stats()
-        ok, counts, secs = counted_call(f"verify {count} cells", lambda: api.verify_cell_kzg_proof_batch(cb, idx, cl, pr, s))
+        ok, counts, secs = counted_call(f"verify {count} cells", lambda: api.verify_cell_kzg_proof_batch(cb, idx, cl, pr, s),
+                                        inverts=True)
         verify_walls[f"cells {count}"], verify_launches[f"cells {count}"] = secs, counts
         verify_peaks[f"cells {count}"] = torch.cuda.max_memory_allocated()
         check(ok is True, f"verify_cell_kzg_proof_batch of {count} valid cells returned {ok}")
@@ -639,7 +663,8 @@ def main() -> int:
     # EIP-4844 verification of the 64 blobs; a proof of another blob gives
     # False, a non-canonical blob raises
     torch.cuda.reset_peak_memory_stats()
-    ok, counts, secs = counted_call(f"verify {N_BLOBS} blobs", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, proofs, s))
+    ok, counts, secs = counted_call(f"verify {N_BLOBS} blobs", lambda: api.verify_blob_kzg_proof_batch(blobs, commits, proofs, s),
+                                    inverts=True)
     verify_walls[f"blobs {N_BLOBS}"], verify_launches[f"blobs {N_BLOBS}"] = secs, counts
     verify_peaks[f"blobs {N_BLOBS}"] = torch.cuda.max_memory_allocated()
     check(ok is True, f"verify_blob_kzg_proof_batch of {N_BLOBS} valid blobs returned {ok}")
@@ -655,6 +680,7 @@ def main() -> int:
     except ValueError as e:
         check("not canonical" in str(e), f"a non-canonical blob raised {e!r}")
     log(f"blob verification: {N_BLOBS} blobs True; a proof of another blob False; a non-canonical blob raises")
+    inv_recording.stop()
 
     # The recovery, multiproof and das_extension calls give B1, B2, B4 and
     # B5 shapes that no earlier call gives them: the vanishing
@@ -883,6 +909,20 @@ def main() -> int:
             err = int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max())
             max_err[name] = max(max_err[name], err)
         check(max_err[name] == 0, f"{name}: kernel and plain version differ (max abs limb error {max_err[name]})")
+
+    # B7 on the main path's inputs (recorded in section 2) and on 0, 1 and
+    # m - 1 among 1152 seeded lanes of each field; plain version (pow_fixed)
+    # on the card
+    check(inv_inputs, "the main path's calls made no inversion")
+    inv_gen = np.random.default_rng(SEED + 13)
+    for spec in (FP, FR):
+        vals = [int.from_bytes(inv_gen.bytes(48), "big") % spec.modulus for _ in range(1152)]
+        vals[:3] = [0, 1, spec.modulus - 1]
+        inv_inputs[("edge", spec.name)] = (spec, spec.encode(vals, dev))
+    for spec, a in inv_inputs.values():
+        compare("field_inv", [fl.inv(spec, a)], [fl.pow_fixed(spec, a, spec.modulus - 2)])
+    inv_shapes = sorted((spec.name, tuple(a.shape)) for spec, a in inv_inputs.values())
+    log(f"field_inv: exact on the main path's inputs and the edge values at {len(inv_shapes)} shapes: {inv_shapes}")
 
     # B1 at the one-blob main-path shape, plain version on a CPU copy
     one_scalars = eip4844._bytes_to_limbs(
@@ -1388,6 +1428,42 @@ def main() -> int:
             f"{sm_clock_mhz:.0f} MHz [{card}]")
     t_b3, t_b3_plain, b3_ops, b3_bytes, _ = b3["proof MSM"]
 
+    # B7 at each field and shape the main path gave it. Bound: latency, the
+    # least chain of dependent products for a^(m-2) at one multiply-add a
+    # clock: a 4-bit fixed window (4 squarings a window after the first, one
+    # multiplication a nonzero window; its table left out), each squaring
+    # at a dedicated squaring's multiply-adds. This design's own chain (left
+    # to right over the bits: (bits - 1) squarings and (ones - 1)
+    # multiplications, each a full product) is printed beside it, as is the
+    # throughput bound (every lane's multiply-adds over every SM).
+    # The row of the kernels line: Fp at one lane (to_affine's root).
+    b7 = {}
+    for key, (spec, a) in inv_inputs.items():
+        if key[0] == "edge":
+            continue
+        e = spec.modulus - 2
+        words = spec.n_limbs // 2
+        mul = words * (4 * words + 1)
+        sqr = words * (3 * words + 2)  # s(s + 1)/2 distinct products, lo and hi, then the reduction's 2 s^2 + s
+        windows = [(e >> (4 * k)) & 15 for k in range(-(-e.bit_length() // 4))]
+        least = 4 * (len(windows) - 1) * sqr + (sum(1 for w in windows[:-1] if w) * mul)
+        prods = e.bit_length() + bin(e).count("1") - 2
+        ms = cuda_ms(lambda: fl.inv(spec, a), 20)
+        t_lat = least / (sm_clock_mhz * 1e6) * 1e3
+        t_design = prods * mul / (sm_clock_mhz * 1e6) * 1e3
+        t_ops = a[0].numel() * prods * mul / peak_imad * 1e3
+        b7[(spec.name, a[0].numel())] = (ms, t_lat)
+        log(f"field_inv {spec.name} at {tuple(a.shape)} ({a[0].numel()} lanes): {ms:.4f} ms; latency bound {t_lat:.4f} ms "
+            f"(least chain: {least} dependent multiply-adds, {sqr} a squaring and {mul} a product, at "
+            f"{sm_clock_mhz:.0f} MHz); this design's chain {t_design:.4f} ms ({prods} products); throughput bound "
+            f"{t_ops:.6f} ms [{card}]")
+    check(("Fp", 1) in b7, f"the main path gave field_inv no one-lane Fp input: {sorted(b7)}")
+    t_b7, b7_bound = b7[("Fp", 1)]
+    fp_one = next(a for spec, a in inv_inputs.values() if spec is FP and a[0].numel() == 1)
+    t_b7_plain = cuda_ms(lambda: fl.pow_fixed(FP, fp_one, FP.modulus - 2), 2)
+    log(f"field_inv Fp one lane: {t_b7:.4f} ms (plain pow_fixed on the card {t_b7_plain:.1f} ms, latency bound "
+        f"{b7_bound:.4f} ms) [{card}]")
+
     # B6 at the probe's shape (the row of the kernels line) and at the
     # MSM's; the plain version is the library call, index_select, timed
     # twice (as "plain" and as "library"); launches queued ahead, sharing
@@ -1467,6 +1543,7 @@ def main() -> int:
     ) + (
         ("gather_rows", t_b6, t_b6_plain, b6_bound, "bytes", "kzg_tpu_torch/csrc/gather_kernels.cu",
          "benches/gather_micro.py:182"),
+        ("field_inv", t_b7, t_b7_plain, b7_bound, "latency", "kzg_tpu_torch/csrc/field_kernels.cu", None),
     ):
         rows_out.append({
             "name": name,
@@ -1490,7 +1567,8 @@ def main() -> int:
     log(f"B1 timed at K={K64} m={m64} ({E64} elements), {cuda_msm.SCAN_GROUP} warps a block; "
         f"B2 at {p_main.x.shape[-1]} lanes, g = {cuda_msm.GROUP}; "
         f"B3 at the 2048-cell proof MSM's launch, g = {cuda_msm.GROUP}; "
-        f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape")
+        f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape; "
+        f"B7 at one Fp lane")
     for label, secs in verify_walls.items():
         log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "
             f"launches {verify_launches[label]} [{card}]")

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from . import launch
 from ..constants import (
     FP_LIMBS,
     FP_N0_INV,
@@ -497,12 +498,49 @@ def pow_fixed(spec: FieldSpec, a, exponent: int) -> torch.Tensor:
     return one_like(spec, a).clone() if acc is None else acc
 
 
+def inv_exponent_words(spec: FieldSpec) -> np.ndarray:
+    """m - 2 as little-endian 32-bit words (uint32): kernel B7's exponent."""
+    e = spec.modulus - 2
+    return np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range(spec.n_limbs // 2)], dtype=np.uint32)
+
+
+@lru_cache(maxsize=None)
+def _inv_exponent(name: str, device: str) -> torch.Tensor:
+    return to_device(inv_exponent_words(_SPECS[name]).view(np.int32), device)
+
+
+@launch.counted("field_inv")
 @tracing.span("kzg.inv")
 def inv(spec: FieldSpec, a) -> torch.Tensor:
-    """Fermat inverse a^(m-2); maps 0 to 0. Counted in the tracing
-    registry as `field.inversions`."""
+    """Fermat inverse a^(m-2) of every lane of (L, *batch) limbs; maps 0 to
+    0. Counted in the tracing registry as `field.inversions`.
+
+    On the CPU the plain version, pow_fixed. For a CUDA tensor one launch
+    of kernel B7 (csrc/field_kernels.cu), counted as `launch.field_inv`;
+    broadcast or strided lanes are first copied to a contiguous (L, N).
+    Nothing falls back."""
     tracing.count("field.inversions")
-    return pow_fixed(spec, a, spec.modulus - 2)
+    dev = a.device
+    if dev.type == "cpu":
+        return pow_fixed(spec, a, spec.modulus - 2)
+    launch.require_cuda(dev)
+    L = spec.n_limbs
+    if a.dim() == 0 or a.shape[0] != L:
+        raise ValueError(f"a: shape {tuple(a.shape)}, expected ({L}, ...) limbs of {spec.name}")
+    if a.dtype != LIMB_DTYPE:
+        raise ValueError(f"a: dtype {a.dtype}, expected {LIMB_DTYPE}")
+    x = a.reshape(L, -1).contiguous()
+    N = x.shape[1]
+    out = torch.empty_like(x)
+    if N == 0:
+        return out.reshape(a.shape)
+    rc = launch.kernels().kzg_field_inv(
+        x.data_ptr(), out.data_ptr(), _inv_exponent(spec.name, str(dev)).data_ptr(),
+        (spec.modulus - 2).bit_length(), L, N, launch.stream(),
+    )
+    tracing.count("launch.field_inv")
+    launch.check_launch(rc, "field_inv")
+    return out.reshape(a.shape)
 
 
 def _pad_last(a: torch.Tensor, m: int, fill: torch.Tensor = None) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """What the kernel wrappers (ops/cuda_msm.py, ops/cuda_fft.py,
-ops/cuda_gather.py) share: their input checks, the launch check, the
-current stream and the kernel library.
+ops/cuda_gather.py, ops/field.py inv) share: their input checks, the
+launch check, the current stream and the kernel library.
 
 The launch counts live in the package's tracing registry (tracing.py), as
 counters `launch.<kernel>`; `counted`, `launches`, `reset_launches` and

@@ -15,6 +15,7 @@ import torch
 import jax.numpy as jnp
 from kzg_tpu.ops import field as jf
 from kzg_tpu_torch.ops import field as tf
+from kzg_tpu_torch.ops import launch
 
 torch.set_num_threads(1)  # one core per test worker: the suite runs several at once
 
@@ -138,6 +139,27 @@ def test_inverse_and_powers(name):
     assert spec.decode(inv) == [pow(x, m - 2, m) for x in xs]  # 0 -> 0
     assert spec.decode(tf.pow_fixed(spec, enc, 5)) == [pow(x, 5, m) for x in xs]
     assert spec.decode(tf.pow_fixed(spec, enc, 0)) == [1] * len(xs)
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_inv_on_the_cpu_launches_nothing(name):
+    """A CPU tensor takes the plain version, pow_fixed: no launch of B7."""
+    spec = SPECS[name][0]
+    m = spec.modulus
+    xs, _, _, _ = _inputs(name, 40, 8)
+    launch.reset_launches()
+    inv = tf.inv(spec, spec.encode(xs, "cpu").reshape(spec.n_limbs, 5, 8))
+    assert launch.launches()["field_inv"] == 0
+    assert inv.shape == (spec.n_limbs, 5, 8)
+    assert spec.decode(inv) == [pow(x, m - 2, m) for x in xs]  # 0 -> 0
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_inv_exponent_words_join_to_m_minus_2(name):
+    spec = SPECS[name][0]
+    words = tf.inv_exponent_words(spec)
+    assert words.dtype == np.uint32 and words.shape == (spec.n_limbs // 2,)
+    assert sum(int(w) << (32 * k) for k, w in enumerate(words)) == spec.modulus - 2
 
 
 @pytest.mark.parametrize("n", [1, 5, 64])

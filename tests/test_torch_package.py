@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from kzg_tpu_torch import api, c_abi_host, convert, fk20, kernels, settings
+from kzg_tpu_torch import api, c_abi_host, convert, fk20, kernels, settings, tracing
 from kzg_tpu_torch.ops import cuda_fft, cuda_gather, cuda_msm, g1, launch, msm
-from kzg_tpu_torch.ops.field import FR
+from kzg_tpu_torch.ops import field as fl
+from kzg_tpu_torch.ops.field import FP, FR
 from kzg_tpu_torch.ops.field import ints_to_limbs
 from kzg_tpu_torch.trusted_setup import TrustedSetup
 
@@ -174,7 +175,7 @@ def test_add_points_checks_inputs_and_has_no_fallback():
     meta = g1.map_coords(lambda c: c.to("meta"), p)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_msm.add_points(meta, meta)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0}
 
 
 def _fr_values(B, n, seed=1):
@@ -199,7 +200,14 @@ def test_ntt_wrappers_check_inputs_and_have_no_fallback():
         cuda_fft.ntt_tile(x.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_fft.ntt_stage(x.to("meta"), 1)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0}
+
+
+def test_field_inv_has_no_fallback():
+    x = FP.encode([0, 1, 5], "cpu")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fl.inv(FP, x.to("meta"))
+    assert launch.launches()["field_inv"] == 0
 
 
 def test_every_launcher_has_a_signature():
@@ -552,3 +560,79 @@ def test_gather_rows_launches_or_raises_on_a_card(cuda_device):
         cuda_gather.gather_rows(tab, torch.tensor([8], dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError, match="on cpu"):
         cuda_gather.gather_rows(tab, torch.tensor([1], dtype=torch.int32))
+
+
+def _field_values(spec, n, seed):
+    """n seeded values of the field, with 0, 1 and m - 1 among them from
+    n = 4 on, in Montgomery form on the CPU."""
+    rng = np.random.default_rng(seed)
+    m = spec.modulus
+    vals = [int.from_bytes(rng.bytes(spec.n_limbs * 2), "little") % m for _ in range(n)]
+    if n >= 4:
+        vals[0], vals[n // 2], vals[-1] = 0, 1, m - 1
+    return vals, spec.encode(vals, "cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 9, 128, 1152, 4097])
+@pytest.mark.parametrize("spec", [FP, FR], ids=["Fp", "Fr"])
+def test_field_inv_kernel_matches_plain(cuda_device, spec, n):
+    """B7 limb for limb against pow_fixed on the card, 0 -> 0."""
+    vals, x = _field_values(spec, n, n)
+    x = x.to(cuda_device)
+    got = fl.inv(spec, x)
+    assert torch.equal(got.cpu(), fl.pow_fixed(spec, x, spec.modulus - 2).cpu())
+    m = spec.modulus
+    assert spec.decode(got) == [pow(v, m - 2, m) for v in vals]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [FP, FR], ids=["Fp", "Fr"])
+def test_field_inv_kernel_on_broadcast_and_strided_inputs(cuda_device, spec):
+    L = spec.n_limbs
+    _, x = _field_values(spec, 15, 3)
+    x = x.to(cuda_device)
+    broadcast = x[:, :5].reshape(L, 1, 5).expand(L, 3, 5)
+    strided = x.reshape(L, 3, 5).transpose(1, 2)
+    for a in (broadcast, strided, x[:, ::2]):
+        got = fl.inv(spec, a)
+        assert got.shape == a.shape
+        assert torch.equal(got.cpu(), fl.pow_fixed(spec, a, spec.modulus - 2).cpu())
+
+
+@pytest.mark.gpu
+def test_field_inv_launches_once_on_a_card(cuda_device):
+    _, x = _field_values(FP, 9, 5)
+    before = tracing.counters().get("field.inversions", 0)
+    launch.reset_launches()
+    fl.inv(FP, x.to(cuda_device))
+    assert launch.launches()["field_inv"] == 1
+    assert tracing.counters()["field.inversions"] == before + 1
+
+
+@pytest.mark.gpu
+def test_field_inv_checks_its_input(cuda_device):
+    _, x = _field_values(FP, 9, 6)
+    x = x.to(cuda_device)
+    launch.reset_launches()
+    with pytest.raises(ValueError, match="expected \\(24, ...\\) limbs"):
+        fl.inv(FP, x[:16])
+    with pytest.raises(ValueError, match="dtype"):
+        fl.inv(FP, x.to(torch.int64))
+    assert launch.launches()["field_inv"] == 0
+
+
+@pytest.mark.gpu
+def test_to_affine_on_the_card_matches_the_cpu(cuda_device):
+    """to_affine of 1152 points (a 9-blob cells call's proofs), one of them
+    the identity: byte-equal to the plain route on a CPU copy."""
+    p = g1.dbl(g1.from_affine(g1.affine_from_ints(_points(1152), cuda_device)))
+    lane = torch.arange(1152, device=cuda_device) == 700
+    p = g1.select_point(lane, g1.infinity((1152,), cuda_device), p)
+    launch.reset_launches()
+    on_card = g1.to_affine(p)
+    assert launch.launches()["field_inv"] == 1
+    on_cpu = g1.to_affine(g1.map_coords(lambda t: t.cpu(), p))
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    assert bool(on_card.inf[700]) and int(on_card.inf.sum()) == 1
