@@ -26,8 +26,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      non-canonical blob raises;
      recovery: three of the 16 cell blobs from a seeded random 64 of their
      cells, from cells 0-63 and from all 128 (proofs only), and one
-     recover_cells_and_kzg_proofs_batch call of two more: cells and proofs
-     byte-equal to the cells call's; 63 cells raise before any launch;
+     recover_cells_and_kzg_proofs_batch call of two more (one recovery
+     pass): cells and proofs byte-equal to the cells call's; 63 cells
+     raise before any launch;
      multiproofs: the whole monomial table (c = 13, 20 x 4096, built on
      the card), whose commitment to a blob's monomial coefficients equals
      blob_to_kzg_commitment; proofs of those 4096 coefficients on cosets
@@ -722,6 +723,7 @@ def main() -> int:
             check(counts[name] > 0, f"recover_cells_and_kzg_proofs from {label} did not launch {name}")
     half = list(range(0, 128, 2))
     batch_idx = [rec_cases[0][2], half]
+    passes = tracing.counters().get("recover.passes", 0)
     (rcs, rps), counts, secs = counted_call(
         "recover_cells_and_kzg_proofs_batch of blobs 3 and 4 (a random 64; the even cells)",
         lambda: api.recover_cells_and_kzg_proofs_batch(batch_idx, [[cells[b][i] for i in idx] for b, idx in zip((3, 4), batch_idx)], s),
@@ -729,6 +731,8 @@ def main() -> int:
     recover_walls["batch of 2"], recover_launches["batch of 2"] = secs, counts
     check(rcs == [cells[3], cells[4]] and rps == [cell_proofs[3], cell_proofs[4]],
           "the batch recovery's cells or proofs differ from the cells call's")
+    passes = tracing.counters().get("recover.passes", 0) - passes
+    check(passes == 1, f"the batch recovery of two blobs made {passes} recovery passes, not one")
     launch.reset_launches()
     try:
         api.recover_cells_and_kzg_proofs(list(range(63)), cells[0][:63], s)

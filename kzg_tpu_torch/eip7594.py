@@ -13,11 +13,14 @@ convolution. The cells and the proofs share one Lagrange -> monomial
 conversion. The host does the 48-byte point codec (native core). Batches
 run in chunks of BATCH_CHUNK blobs.
 
-Recovery runs on the device, one blob at a time: the missing cells'
-vanishing polynomial (a tree of FFT products over their roots), the
-division of the known values times that polynomial by it on a coset (FFTs
-of 8192 and one batch inversion), and the FK20 proofs of the recovered
-coefficients. With all 128 cells given, only the proofs are computed.
+Recovery checks every blob's cells on the host first, then runs one device
+pass per chunk of BATCH_CHUNK blobs: the missing cells' vanishing
+polynomials (a tree of FFT products over their roots), the division of the
+known values times that polynomial by it on a coset (FFTs of 8192 and one
+batch inversion), and the FK20 proofs of the recovered coefficients, the
+producer's proof step. A blob given all 128 cells rides along: its
+vanishing polynomial is 1, so its cells and coefficients come back as
+given.
 
 Batch verification runs on the device: the cells' byte -> limb conversion
 with the canonicality check, the proof and commitment lincombs
@@ -57,7 +60,7 @@ from .ops.field import FR
 from .ops.g1fft import fk20_half_convolution
 from .ops.poly import vanishing_poly
 from .settings import CELL_INDICES_RBL, TorchKZGSettings
-from .tracing import span
+from .tracing import count, span
 
 N = FIELD_ELEMENTS_PER_BLOB
 N_EXT = FIELD_ELEMENTS_PER_EXT_BLOB  # 8192
@@ -135,18 +138,30 @@ def _fk20_body(poly_m: torch.Tensor, table: dmsm.FixedBaseTable) -> dg1.G1XYZZ:
     return dg1.map_coords(bit_reverse, proofs)
 
 
+def _cell_bytes(cells: torch.Tensor) -> List[List[bytes]]:
+    """Canonical limbs (16, B, 8192) in wire order, copied to the host,
+    as each blob's 128 cells of 2048 bytes."""
+    cells_np = fl.to_host(cells).numpy()
+    out = []
+    for b in range(cells_np.shape[1]):
+        wire = bs.frs_to_bytes(cells_np[:, b, :])
+        out.append([wire[i * BYTES_PER_CELL : (i + 1) * BYTES_PER_CELL] for i in range(K2)])
+    return out
+
+
+def _proof_bytes(poly_m: torch.Tensor, s: TorchKZGSettings) -> List[List[bytes]]:
+    """The 128 compressed FK20 proofs of each of B blobs' monomial
+    coefficients (16, B, n >= 4096), Montgomery, the coefficients above
+    4096 not read: one FK20 pass and one to_affine over the batch, one
+    compression a blob. The producer and the recovery share it."""
+    pts = dg1.affine_to_ints(dg1.to_affine(_fk20_body(poly_m[..., :N], s.column_tables)))
+    return [native.g1_compress_batch(pts[b * K2 : (b + 1) * K2]) for b in range(poly_m.shape[1])]
+
+
 def _chunk_cells_proofs(chunk: Sequence[bytes], s: TorchKZGSettings, with_proofs: bool):
     raw = np.frombuffer(b"".join(chunk), dtype=np.uint8).reshape(len(chunk), N, 32)
     cells, poly = _cells_body(fl.to_device(raw.copy(), s.device))
-    cells_np = fl.to_host(cells).numpy()
-    out_cells = []
-    for b in range(len(chunk)):
-        wire = bs.frs_to_bytes(cells_np[:, b, :])
-        out_cells.append([wire[i * BYTES_PER_CELL : (i + 1) * BYTES_PER_CELL] for i in range(K2)])
-    if not with_proofs:
-        return out_cells, []
-    pts = dg1.affine_to_ints(dg1.to_affine(_fk20_body(poly, s.column_tables)))
-    return out_cells, [native.g1_compress_batch(pts[b * K2 : (b + 1) * K2]) for b in range(len(chunk))]
+    return _cell_bytes(cells), (_proof_bytes(poly, s) if with_proofs else [])
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +232,9 @@ def _recover_body(cells_wire, missing_cells, missing_roots, roots_valid, s: Torc
     fewer than 64 cells). Returns the canonical cells (16, B, 8192) in wire
     order and the coefficients (16, B, 8192), Montgomery, whose top half
     is zero for a consistent input."""
-    short = vanishing_poly(fl.from_canonical(FR, missing_roots), roots_valid)  # (16, B, 65)
+    count("recover.passes")
+    with span("kzg.body.vanish"):
+        short = vanishing_poly(fl.from_canonical(FR, missing_roots), roots_valid)  # (16, B, 65)
     # Z(X) = short(X^64): zero on the 64 points of each missing cell
     vanish = short.new_zeros(short.shape[:-1] + (N_EXT,))
     vanish[..., : (short.shape[-1] - 1) * CELL + 1 : CELL] = short
@@ -226,13 +243,6 @@ def _recover_body(cells_wire, missing_cells, missing_roots, roots_valid, s: Torc
         bit_reverse(fl.from_canonical(FR, cells_wire)), missing, vanish, *s.recovery_shift_pows
     )
     return fl.to_canonical(FR, bit_reverse(natural)), coeffs
-
-
-def _proof_bytes(poly_m: torch.Tensor, s: TorchKZGSettings) -> List[bytes]:
-    """The 128 compressed FK20 proofs of one blob's coefficients (16, 1,
-    n >= 4096), Montgomery; the coefficients above 4096 are not read."""
-    aff = dg1.to_affine(_fk20_body(poly_m[..., :N], s.column_tables))
-    return native.g1_compress_batch(dg1.affine_to_ints(aff))
 
 
 def _check_recover_inputs(cell_indices: Sequence[int], cells_bytes: Sequence[bytes]) -> np.ndarray:
@@ -264,20 +274,30 @@ def _check_recover_inputs(cell_indices: Sequence[int], cells_bytes: Sequence[byt
     return cell_limbs
 
 
-def _recover_inputs(cell_indices: Sequence[int], cell_limbs: np.ndarray, device):
-    """The inputs of _recover_body for one blob (B = 1) given its cells."""
-    missing = np.ones(K2, dtype=bool)
-    missing[list(cell_indices)] = False
+@lru_cache(maxsize=None)
+def _cell_roots() -> Tuple[int, ...]:
+    """Cell i's 128th root of unity, w^CELL_INDICES_RBL[i], for each i."""
     w128 = root_of_unity(K2.bit_length() - 1)
-    roots = [pow(w128, CELL_INDICES_RBL[i], R) for i in np.flatnonzero(missing)]
-    valid = np.zeros(K2 // 2, dtype=bool)
-    valid[: len(roots)] = True
-    roots += [0] * (K2 // 2 - len(roots))
+    return tuple(pow(w128, CELL_INDICES_RBL[i], R) for i in range(K2))
+
+
+def _recover_inputs(cell_indices_list: Sequence[Sequence[int]], cell_limbs: Sequence[np.ndarray], device):
+    """The inputs of _recover_body for B blobs given their cells (each
+    blob's indices and its limbs from _check_recover_inputs)."""
+    B = len(cell_indices_list)
+    missing = np.ones((B, K2), dtype=bool)
+    roots = np.zeros((FR.n_limbs, B, K2 // 2), dtype=np.int32)
+    valid = np.zeros((B, K2 // 2), dtype=bool)
+    for b, idx in enumerate(cell_indices_list):
+        missing[b, list(idx)] = False
+        gone = np.flatnonzero(missing[b])
+        roots[:, b, : len(gone)] = fl.ints_to_limbs([_cell_roots()[i] for i in gone], FR.n_limbs)
+        valid[b, : len(gone)] = True
     return (
-        fl.to_device(cell_limbs[:, None, :], device),
-        fl.to_device(missing[None], device),
-        fl.to_device(fl.ints_to_limbs(roots, FR.n_limbs)[:, None, :], device),
-        fl.to_device(valid[None], device),
+        fl.to_device(np.stack(cell_limbs, axis=1), device),
+        fl.to_device(missing, device),
+        fl.to_device(roots, device),
+        fl.to_device(valid, device),
     )
 
 
@@ -285,30 +305,29 @@ def recover_cells_and_kzg_proofs(
     cell_indices: Sequence[int], cells_bytes: Sequence[bytes], s: TorchKZGSettings
 ) -> Tuple[List[bytes], List[bytes]]:
     """All 128 cells of an extended blob and their proofs, from at least
-    64 of its cells (strictly ascending indices). With all 128 given, only
-    the proofs are computed (from the cells' coefficients, one inverse FFT
-    of 8192)."""
-    cell_limbs = _check_recover_inputs(cell_indices, cells_bytes)
-    if len(cell_indices) == K2:
-        wire_m = fl.from_canonical(FR, fl.to_device(cell_limbs[:, None, :], s.device))
-        return list(cells_bytes), _proof_bytes(ifft(bit_reverse(wire_m)), s)
-    cells, coeffs = _recover_body(*_recover_inputs(cell_indices, cell_limbs, s.device), s)
-    wire = bs.frs_to_bytes(fl.to_host(cells[:, 0, :]).numpy())
-    out_cells = [wire[i * BYTES_PER_CELL : (i + 1) * BYTES_PER_CELL] for i in range(K2)]
-    return out_cells, _proof_bytes(coeffs, s)
+    64 of its cells (strictly ascending indices): the batch of one."""
+    cells, proofs = recover_cells_and_kzg_proofs_batch([cell_indices], [cells_bytes], s)
+    return cells[0], proofs[0]
 
 
 def recover_cells_and_kzg_proofs_batch(
     cell_indices_list: Sequence[Sequence[int]], cells_list: Sequence[Sequence[bytes]], s: TorchKZGSettings
 ) -> Tuple[List[List[bytes]], List[List[bytes]]]:
-    """recover_cells_and_kzg_proofs of each blob, one after another."""
+    """recover_cells_and_kzg_proofs of each blob. Every blob's inputs are
+    checked, in blob order, before anything reaches the device; then one
+    pass per chunk of BATCH_CHUNK blobs: one recovery body, one copy of the
+    cells to the host, one FK20 proof step."""
     if len(cell_indices_list) != len(cells_list):
         raise ValueError("Cell indices & cells mismatch")
+    cell_indices_list = list(cell_indices_list)
+    limbs = [_check_recover_inputs(idx, cells) for idx, cells in zip(cell_indices_list, cells_list)]
     out_cells, out_proofs = [], []
-    for idxs, cells in zip(cell_indices_list, cells_list):
-        c, p = recover_cells_and_kzg_proofs(idxs, cells, s)
-        out_cells.append(c)
-        out_proofs.append(p)
+    for lo in range(0, len(limbs), BATCH_CHUNK):
+        idxs = cell_indices_list[lo : lo + BATCH_CHUNK]
+        count("recover.blobs", sum(len(idx) < K2 for idx in idxs))
+        cells, coeffs = _recover_body(*_recover_inputs(idxs, limbs[lo : lo + BATCH_CHUNK], s.device), s)
+        out_cells += _cell_bytes(cells)
+        out_proofs += _proof_bytes(coeffs, s)
     return out_cells, out_proofs
 
 

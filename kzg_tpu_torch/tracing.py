@@ -5,7 +5,10 @@ hand-written kernels' launches are counters `launch.<kernel>`: each
 wrapper is registered with `counted` and counts where it launches its
 kernel, and nowhere else; `launches()` reads those counts alone and
 `reset_launches()` zeroes them (also as `ops.launch.*`). Other counters:
-`field.inversions`, one a Fermat inversion (`ops/field.py inv`, a batch).
+`field.inversions`, one a Fermat inversion (`ops/field.py inv`, a batch);
+`recover.passes`, one a recovery body (`eip7594._recover_body`, a chunk of
+blobs), and `recover.blobs`, the blobs it recovered (those given all 128
+cells left out).
 
 Spans (`span`) record exactly while a torch.profiler session is active
 (`torch.autograd.profiler._is_profiler_enabled`); otherwise a span is one
@@ -25,7 +28,9 @@ exporter (`export_chrome_trace`) carries the spans.
 
 The names, all under `kzg.` (families partition an API call's time):
   kzg.api.<function>         api.py, each public function: the call
-  kzg.body.<name>            the protocol bodies (eip4844.py, eip7594.py)
+  kzg.body.<name>            the protocol bodies (eip4844.py, eip7594.py);
+                             kzg.body.vanish, the vanishing polynomials
+                             inside kzg.body.recover
   kzg.msm.fixed, .var        ops/msm.py; stages .scan (B1 and the
                              segmented scan), .integrate (bucket
                              integration), .combine (B3)

@@ -61,12 +61,9 @@ def recovered(port, cells):
     """The recovery body on the three patterns as one batch of three:
     canonical cells (16, 3, 8192) in wire order, coefficients (16, 3,
     8192) in Montgomery form."""
-    inputs = []
-    for idx in PATTERNS.values():
-        limbs = te._check_recover_inputs(idx, [cells[i] for i in idx])
-        inputs.append(te._recover_inputs(idx, limbs, port.device))
-    batched = [torch.cat([x[k] for x in inputs], dim=1 if k in (0, 2) else 0) for k in range(4)]
-    return te._recover_body(*batched, port)
+    idxs = list(PATTERNS.values())
+    limbs = [te._check_recover_inputs(idx, [cells[i] for i in idx]) for idx in idxs]
+    return te._recover_body(*te._recover_inputs(idxs, limbs, port.device), port)
 
 
 def _ints(b: bytes):
@@ -98,7 +95,7 @@ def test_public_recovery_gives_the_cells_and_the_coefficients(port, cells, monke
     FK20 proofs the blob's monomial coefficients (8192 of them, top half
     zero): the proofs of those are held on the card by chip_smoke.py."""
     seen = []
-    monkeypatch.setattr(te, "_proof_bytes", lambda poly_m, s: seen.append(poly_m) or ["proof"] * 128)
+    monkeypatch.setattr(te, "_proof_bytes", lambda poly_m, s: seen.append(poly_m) or [["proof"] * 128])
     idx = PATTERNS["random 64"] if pattern == "random 64" else list(range(128))
     out_cells, out_proofs = api.recover_cells_and_kzg_proofs(idx, [cells[i] for i in idx], port)
     assert out_cells == cells and out_proofs == ["proof"] * 128
