@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero, and the result line is not printed):
   1. card and builds: the card's name and power limit, torch and CUDA
      versions; build the CUDA kernels (one nvcc per source; registers and
-     spills printed; B1, B2, B3 and B7 must not spill, and B7 has no
+     spills printed; B1, B2, B3, B7 and B8 must not spill, and B7 has no
      stack), the native host
      core and the C ABI (the embedded-interpreter shim and the C test
      program), all at the same time;
@@ -17,7 +17,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
      random blobs and prove them;
      EIP-7594: build the FK20 column points and their c = 8 tables on the
      card, compute the cells and proofs of 16 seeded blobs in one batch
-     call, then the cells of each blob through compute_cells;
+     call (one launch of B8, FK20's ladders, a chunk), then the cells of
+     each blob through compute_cells;
      verification: all 2048 cells and proofs of those 16 blobs in one
      verify_cell_kzg_proof_batch call (a supernode's or a builder's check
      of a block), then a sampling node's 8 columns of them (128 cells),
@@ -26,9 +27,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      non-canonical blob raises;
      recovery: three of the 16 cell blobs from a seeded random 64 of their
      cells, from cells 0-63 and from all 128 (proofs only), and one
-     recover_cells_and_kzg_proofs_batch call of two more (one recovery
-     pass): cells and proofs byte-equal to the cells call's; 63 cells
-     raise before any launch;
+     recover_cells_and_kzg_proofs_batch call of nine more (one recovery
+     pass, one launch of B8): cells and proofs byte-equal to the cells
+     call's; 63 cells raise before any launch;
      multiproofs: the whole monomial table (c = 13, 20 x 4096, built on
      the card), whose commitment to a blob's monomial coefficients equals
      blob_to_kzg_commitment; proofs of those 4096 coefficients on cosets
@@ -56,17 +57,17 @@ Phases (any failure exits non-zero, and the result line is not printed):
      variable-base MSMs, at m = 300 and m = 1, K = 1, with one doubling
      lane in a 32-lane block, a block where every lane doubles, identity
      rows and an identity sum at a restart; B4 and B5 at n = 2, 512, 1024,
-     2048, 4096 and 8192; B2 also on the FK20 half
-     convolution's 133,120 lanes, at 1, 7, 33, 240, 1000 and 2048 lanes,
+     2048, 4096 and 8192; B2 also on 133,120 lanes of FK20 column sums
+     gathered over the half convolution's taps, at 1, 7, 33, 240, 1000
+     and 2048 lanes,
      with one doubling lane in a 32-lane block and a block where every
      lane doubles; B3 at the verify paths' shapes (the proof MSM: 1 and 2 MSMs,
      c = 13, 20 windows; the commitment MSM: c = 8, 32 windows), one
      window, c = 1, and at 1024 lanes; B1, B2, B4 and B5 on the first
      input of each shape that the recovery, multiproof and das_extension
      calls gave them, and B2 and B4 on those of the legacy FK20 calls (the
-     half convolutions' 8,320, 131,584 and 525,312 lanes, the chunk
-     files' transforms 64 x 128, 16 x 512 and 1 x 1024), recorded while
-     the calls ran;
+     chunk files' transforms 64 x 128, 16 x 512 and 1 x 1024 among them),
+     recorded while the calls ran;
      B6 word for word at the probe's shape, at the MSM's (batch 8, 25-word
      rows) and on edge cases (first and last rows, repeated indices, a
      ragged count, widths 24 and 25, an unaligned table), and an index out
@@ -74,7 +75,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
      first input of each field and shape that the main path's calls gave
      it, recorded while they ran, and on 0, 1 and m - 1 among 1152 lanes;
      the commit, prove and verify calls launched B7 once per counted
-     inversion;
+     inversion; B8 (FK20's and the G1 FFT's fixed-scalar ladders) against
+     its plain version on the card on the 9-blob recovery's half
+     convolution (74,880 lanes, two GLV tables, lanes through src), on
+     every stage of a forward and an inverse G1 FFT of 64 x 128 column
+     points (one table; the inverse's 1/n scale, one digit column) and on
+     the legacy FK20 calls' half convolutions (8,320, 131,584 and 525,312
+     lanes), recorded while the calls ran;
   4. checks of the results: known answers from the setup file's own bytes
      (unit blobs commit to Lagrange points; blobs of x^(64 + k) have known
      cells and known proofs), a commitment and a proof against the CPU path
@@ -92,7 +99,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
      rounds, and one thread's products as in the earlier design); B4 and
      B5 at each launch of one cells call; B7 at each field and shape the
      main path gave it, with its latency bound (the chain of dependent
-     products at one multiply-add a clock);
+     products at one multiply-add a clock); B8 at the 9-blob half
+     convolution, with its bound (operations) and its plain version's
+     time;
   6. multi-device, in ranks of one gloo process group started in processes
      of their own by kzg_tpu_torch.parallel.dryrun.launch, every rank on
      this card (NCCL refuses two ranks on one card): 2 ranks on
@@ -131,7 +140,8 @@ N_SAMPLE_COLUMNS = 8  # a sampling node's columns (PeerDAS custody of 8 of 128)
 BENCH_BATCH, BENCH_ITERS = 8, 3  # the headline bench's batch, cut to 3 iterations
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
-NO_SPILL = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel", "field_inv_kernel")  # B1-B3, B7: ptxas must report no spills
+NO_SPILL = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel", "field_inv_kernel",
+            "g1_ladder_kernel")  # B1-B3, B7, B8: ptxas must report no spills
 NO_STACK = ("field_inv_kernel",)  # B7: ptxas must report no stack frame
 
 
@@ -203,7 +213,7 @@ def build_all():
             log("  ptxas:", line.strip())
         if entry and "spill" in line:
             spills.setdefault(entry, []).append(line.strip())
-    # B1, B2, B3 and B7 (each of its instances) keep every value in
+    # B1, B2, B3, B7 (each of its instances) and B8 keep every value in
     # registers or shared memory
     for k in NO_SPILL:
         check(k in spills, f"ptxas reported no spill line for {k}")
@@ -616,6 +626,9 @@ def main() -> int:
     peak_mem_cells = torch.cuda.max_memory_allocated()
     for name in ("seg_scan_phase1", "add_unified", "ntt_tile", "ntt_stage"):
         check(launches_cells[name] > 0, f"compute_cells_and_kzg_proofs_batch did not launch {name}")
+    n_chunks = -(-N_CELL_BLOBS // eip7594.BATCH_CHUNK)
+    check(launches_cells["g1_ladder"] == n_chunks,
+          f"compute_cells_and_kzg_proofs_batch launched g1_ladder {launches_cells['g1_ladder']} times for {n_chunks} chunks")
     check(len(cells) == N_CELL_BLOBS and all(len(c) == 128 and all(len(x) == 2048 for x in c) for c in cells), "bad cells")
     check(len(cell_proofs) == N_CELL_BLOBS and all(len(p) == 128 for p in cell_proofs), "bad cell proofs")
     t_compute_cells = 0.0
@@ -721,18 +734,27 @@ def main() -> int:
         check(rp == cell_proofs[b], f"recovered proofs of blob {b} from {label} differ from the cells call's")
         for name in ("ntt_tile", "ntt_stage", "seg_scan_phase1", "add_unified"):
             check(counts[name] > 0, f"recover_cells_and_kzg_proofs from {label} did not launch {name}")
+        check(counts["g1_ladder"] == 1, f"recover_cells_and_kzg_proofs from {label} launched g1_ladder {counts['g1_ladder']} times")
+    # a 9-blob block (EIP-7691) in one call: blobs 3-11, each from its own
+    # seeded 64 cells, the even cells or the odd ones; B8 keeps its input
+    # (the half convolution of 9 blobs) for section 3
     half = list(range(0, 128, 2))
-    batch_idx = [rec_cases[0][2], half]
+    batch_blobs = list(range(3, 12))
+    batch_idx = [sorted(rec_rng.choice(128, 64, replace=False).tolist()) for _ in range(7)] + [half, [i + 1 for i in half]]
+    b8_inputs = {}
+    b8_recording = Recording(g1fft, "ladder", b8_inputs)
     passes = tracing.counters().get("recover.passes", 0)
     (rcs, rps), counts, secs = counted_call(
-        "recover_cells_and_kzg_proofs_batch of blobs 3 and 4 (a random 64; the even cells)",
-        lambda: api.recover_cells_and_kzg_proofs_batch(batch_idx, [[cells[b][i] for i in idx] for b, idx in zip((3, 4), batch_idx)], s),
+        "recover_cells_and_kzg_proofs_batch of blobs 3-11 (seeded 64 cells; the even cells; the odd cells)",
+        lambda: api.recover_cells_and_kzg_proofs_batch(batch_idx, [[cells[b][i] for i in idx] for b, idx in zip(batch_blobs, batch_idx)], s),
     )
-    recover_walls["batch of 2"], recover_launches["batch of 2"] = secs, counts
-    check(rcs == [cells[3], cells[4]] and rps == [cell_proofs[3], cell_proofs[4]],
+    b8_recording.stop()
+    recover_walls["batch of 9"], recover_launches["batch of 9"] = secs, counts
+    check(rcs == [cells[b] for b in batch_blobs] and rps == [cell_proofs[b] for b in batch_blobs],
           "the batch recovery's cells or proofs differ from the cells call's")
     passes = tracing.counters().get("recover.passes", 0) - passes
-    check(passes == 1, f"the batch recovery of two blobs made {passes} recovery passes, not one")
+    check(passes == 1, f"the batch recovery of nine blobs made {passes} recovery passes, not one")
+    check(counts["g1_ladder"] == 1, f"the batch recovery of nine blobs launched g1_ladder {counts['g1_ladder']} times, not once")
     launch.reset_launches()
     try:
         api.recover_cells_and_kzg_proofs(list(range(63)), cells[0][:63], s)
@@ -740,7 +762,7 @@ def main() -> int:
     except ValueError as e:
         check("not enough cells" in str(e), f"recovery from 63 cells raised {e!r}")
     check(not any(launch.launches().values()), f"recovery from 63 cells launched {launch.launches()}")
-    log("recovery: cells and proofs of 3 blobs and a batch of 2 equal the cells call's; 63 cells raise before any launch")
+    log("recovery: cells and proofs of 3 blobs and a batch of 9 equal the cells call's; 63 cells raise before any launch")
 
     # the monomial table and multiproofs: the table's commitment to blob
     # 0's monomial coefficients is the blob's commitment; proofs of those
@@ -825,11 +847,12 @@ def main() -> int:
     # 1024, the widest single whose half convolution, 525,312 lanes, stays
     # within 4x the cells call's 133,120). Proofs are checked through
     # verify_kzg_proof_multi and verify_kzg_proof (True; False with a value
-    # changed). While these calls run, B2 and B4 keep their first input of
-    # each shape for section 3.
-    legacy_inputs = {"add_unified": {}, "ntt_tile": {}}
+    # changed). While these calls run, B2, B4 and B8 keep their first input
+    # of each shape for section 3.
+    legacy_inputs = {"add_unified": {}, "ntt_tile": {}, "g1_ladder": {}}
     recordings = [Recording(cuda_msm, "add_points", legacy_inputs["add_unified"]),
-                  Recording(cuda_fft, "ntt_tile", legacy_inputs["ntt_tile"])]
+                  Recording(cuda_fft, "ntt_tile", legacy_inputs["ntt_tile"]),
+                  Recording(g1fft, "ladder", legacy_inputs["g1_ladder"])]
     legacy_walls, legacy_launches = {}, {}
     ext0 = [int.from_bytes(c[32 * i : 32 * i + 32], "big") for c in cells[0] for i in range(64)]  # brp order
 
@@ -844,6 +867,7 @@ def main() -> int:
         legacy_walls[label], legacy_launches[label] = secs, counts
         for name in ("add_unified", "ntt_tile"):
             check(counts[name] > 0, f"legacy FK20 {label} did not launch {name}")
+        check(counts["g1_ladder"] == 1, f"legacy FK20 {label} launched g1_ladder {counts['g1_ladder']} times, not once")
         return fk, native.g1_compress_batch(out)
 
     for chunk_len, positions in ((64, (0, 77, 127)), (16, (0, 1, 300, 511))):
@@ -927,6 +951,33 @@ def main() -> int:
         compare("field_inv", [fl.inv(spec, a)], [fl.pow_fixed(spec, a, spec.modulus - 2)])
     inv_shapes = sorted((spec.name, tuple(a.shape)) for spec, a in inv_inputs.values())
     log(f"field_inv: exact on the main path's inputs and the edge values at {len(inv_shapes)} shapes: {inv_shapes}")
+
+    # B8 on the 9-blob recovery's half convolution (recorded in section 2:
+    # 74,880 lanes, two GLV tables, lanes through src) and on every stage
+    # of a forward and an inverse G1 FFT of the 64 x 128 column points
+    # (one table, a digit column a twiddle; the inverse's 1/n scale, one
+    # digit column), recorded while they run; plain version on the card
+    check(len(b8_inputs) == 1, f"the 9-blob recovery gave g1_ladder {len(b8_inputs)} shapes")
+    ((b8_key, b8_args),) = b8_inputs.items()
+    check(b8_key[1][0] == 2 and b8_key[2] == (9 * 128 * 65,), f"the 9-blob recovery's half convolution: {b8_key}")
+    b8_got = g1fft.ladder(*b8_args)
+    b8_ref, t_b8_plain = timed(synced(lambda: g1fft.ladder_ref(*b8_args)))
+    compare("g1_ladder", b8_got, b8_ref)
+    del b8_got, b8_ref
+    g1_rows = g1.from_affine(g1.map_coords(lambda c: c.transpose(-1, -2).contiguous(), s.x_ext_fft_columns))  # (24, 64, 128)
+    fft_b8 = {}
+    fft_recording = Recording(g1fft, "ladder", fft_b8)
+    fwd = g1fft.fft_g1(g1_rows)
+    back = g1fft.fft_g1(fwd, inverse=True)
+    fft_recording.stop()
+    check(g1.xyzz_to_ints(back) == g1.xyzz_to_ints(g1_rows), "ifft_g1(fft_g1(P)) != P on the column points")
+    check({key[1] for key in fft_b8} >= {(1, 52, 1 << st) for st in range(1, 7)} | {(1, 52, 1)},
+          f"the G1 FFTs gave g1_ladder {sorted(fft_b8)}")
+    for args in fft_b8.values():
+        compare("g1_ladder", g1fft.ladder(*args), g1fft.ladder_ref(*args))
+    log(f"g1_ladder: exact on the 9-blob half convolution ({b8_key[2][0]} lanes, plain {t_b8_plain:.2f} s on the card) "
+        f"and on the G1 FFTs' {len(fft_b8)} shapes {sorted(fft_b8)}; ifft_g1(fft_g1(P)) == P")
+    del g1_rows, fwd, back, fft_b8
 
     # B1 at the one-blob main-path shape, plain version on a CPU copy
     one_scalars = eip4844._bytes_to_limbs(
@@ -1123,16 +1174,17 @@ def main() -> int:
             f"{len(path_inputs[name])} shapes: {sorted(path_inputs[name])}")
     del path_inputs
 
-    # B2 and B4 on the legacy FK20 calls' inputs (recorded in section 2),
-    # plain versions on the card: the half convolutions' 8,320, 131,584 and
-    # 525,312 lanes and the chunk files' transforms among them
+    # B2, B4 and B8 on the legacy FK20 calls' inputs (recorded in section
+    # 2), plain versions on the card: the chunk files' transforms and the
+    # half convolutions' 8,320, 131,584 and 525,312 lanes among them
     want_lanes = {128 * 65, 512 * 257, 1024 * 513}
-    seen_lanes = {key[0][1] for key in legacy_inputs["add_unified"]}
-    check(want_lanes <= seen_lanes, f"add_unified: the legacy calls' lanes lack {sorted(want_lanes - seen_lanes)}")
+    seen_lanes = {key[2][0] for key in legacy_inputs["g1_ladder"] if len(key) == 3 and key[2] is not None}
+    check(want_lanes <= seen_lanes, f"g1_ladder: the legacy calls' lanes lack {sorted(want_lanes - seen_lanes)}")
     want_ntt = {((16, 64, 128), False), ((16, 16, 512), False), ((16, 1, 1024), False)}
     check(want_ntt <= set(legacy_inputs["ntt_tile"]), f"ntt_tile: the legacy calls' shapes lack "
           f"{sorted(want_ntt - set(legacy_inputs['ntt_tile']))}")
-    for name in ("add_unified", "ntt_tile"):
+    refs["g1_ladder"] = g1fft.ladder_ref
+    for name in ("add_unified", "ntt_tile", "g1_ladder"):
         for args in legacy_inputs[name].values():
             got, ref = launch.WRAPPERS[name](*args), refs[name](*args)
             compare(name, [got] if torch.is_tensor(got) else got, [ref] if torch.is_tensor(ref) else ref)
@@ -1468,6 +1520,21 @@ def main() -> int:
     log(f"field_inv Fp one lane: {t_b7:.4f} ms (plain pow_fixed on the card {t_b7_plain:.1f} ms, latency bound "
         f"{b7_bound:.4f} ms) [{card}]")
 
+    # B8 at the 9-blob half convolution (the row of the kernels line).
+    # Bound: operations, w c doublings and w T additions a lane at their
+    # products (9 and 14; the doubling fallback and phi's product of x by
+    # beta left out, as a stored phi table would avoid it)
+    b8_mult, b8_digits, b8_src = b8_args
+    T8, w8, _ = b8_digits.shape
+    b8_lanes = b8_src.numel()
+    b8_prods = w8 * g1fft.TWIDDLE_WINDOW * cuda_msm.DBL_FMULS + w8 * T8 * cuda_msm.ADD_FMULS_DISTINCT
+    t_b8 = cuda_ms(lambda: g1fft.ladder(*b8_args), 10)
+    b8_bound = b8_lanes * b8_prods * MULADDS_PER_FMUL / peak_imad * 1e3
+    log(f"g1_ladder 9-blob half convolution ({b8_lanes} lanes, {w8} windows, {T8} tables, {b8_mult.x.shape[-1]} points): "
+        f"{t_b8:.4f} ms; bound {b8_bound:.4f} ms (operations, {b8_prods} products a lane); "
+        f"{b8_bound / t_b8:.0%} of the bound; plain version on the card {t_b8_plain * 1e3:.1f} ms [{card}]")
+    del b8_args, b8_inputs
+
     # B6 at the probe's shape (the row of the kernels line) and at the
     # MSM's; the plain version is the library call, index_select, timed
     # twice (as "plain" and as "library"); launches queued ahead, sharing
@@ -1548,6 +1615,7 @@ def main() -> int:
         ("gather_rows", t_b6, t_b6_plain, b6_bound, "bytes", "kzg_tpu_torch/csrc/gather_kernels.cu",
          "benches/gather_micro.py:182"),
         ("field_inv", t_b7, t_b7_plain, b7_bound, "latency", "kzg_tpu_torch/csrc/field_kernels.cu", None),
+        ("g1_ladder", t_b8, t_b8_plain * 1e3, b8_bound, "operations", "kzg_tpu_torch/csrc/g1fft_kernels.cu", None),
     ):
         rows_out.append({
             "name": name,
@@ -1572,7 +1640,7 @@ def main() -> int:
         f"B2 at {p_main.x.shape[-1]} lanes, g = {cuda_msm.GROUP}; "
         f"B3 at the 2048-cell proof MSM's launch, g = {cuda_msm.GROUP}; "
         f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape; "
-        f"B7 at one Fp lane")
+        f"B7 at one Fp lane; B8 at the 9-blob half convolution")
     for label, secs in verify_walls.items():
         log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "
             f"launches {verify_launches[label]} [{card}]")

@@ -28,7 +28,7 @@ from .tracing import span
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("msm_kernels.cu", "fft_kernels.cu", "gather_kernels.cu", "field_kernels.cu")
+SOURCES = ("msm_kernels.cu", "fft_kernels.cu", "gather_kernels.cu", "field_kernels.cu", "g1fft_kernels.cu")
 HEADERS = ("field.cuh", "g1.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +45,7 @@ SIGNATURES = {
     "kzg_ntt_stage": ([_p] * 3 + [_i, _i, _ll, _p], "fft_kernels.cu"),
     "kzg_gather_rows": ([_p] * 4 + [_ll, _ll, _i, _p], "gather_kernels.cu"),
     "kzg_field_inv": ([_p] * 3 + [_i, _i, _ll, _p], "field_kernels.cu"),
+    "kzg_g1_ladder": ([_p] * 8 + [_i] * 5 + [_p], "g1fft_kernels.cu"),
 }
 
 _lock = threading.Lock()

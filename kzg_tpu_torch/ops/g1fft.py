@@ -11,13 +11,15 @@ algorithm:
     phi(x, y) = (beta x, y) = lambda P into two ~128-bit halves that share
     one table of multiples, halving the ladder's depth.
 
-Additions go through g1.add_unified (kernel B2 on the card); doublings,
-gathers and selects are plain PyTorch. Point batches are XYZZ (24, *batch)
-limb tensors; everything batches over leading dims.
+The ladder is one launch of kernel B8 on the card (`ladder`; its plain
+version `_ladder` on the CPU), over the multiples of each distinct point,
+built by g1.add_unified (kernel B2 on the card), as the butterflies' and
+the tap sum's additions are. Point batches are XYZZ (24, *batch) limb
+tensors; everything batches over leading dims.
 """
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,12 +34,13 @@ from ..constants import (
     root_of_unity,
 )
 from . import field as fl
-from . import g1
+from . import g1, launch
 from .cuda_fft import bit_reverse
 from .field import FP
 from .g1 import G1XYZZ, map_coords
 
 TWIDDLE_WINDOW = 5  # digits in [-16, 16]
+_TABLE = (1 << (TWIDDLE_WINDOW - 1)) + 1  # a point's multiples 0 .. 16
 
 # ---------------------------------------------------------------------------
 # GLV: phi(x, y) = (beta x, y) satisfies phi(P) = lambda P with
@@ -147,27 +150,85 @@ def _ladder(tables, digit_sets) -> G1XYZZ:
     return acc
 
 
-def _on(dev, digits: np.ndarray, signs: np.ndarray):
-    return fl.to_device(digits, dev), fl.to_device(signs, dev)
+@lru_cache(maxsize=None)
+def _beta_limbs(device: str) -> torch.Tensor:
+    return fl.to_device(FP.const(glv_beta()), device)
 
 
-def _mul_fixed_scalars(p: G1XYZZ, digits: np.ndarray, signs: np.ndarray) -> G1XYZZ:
-    """Each lane of p (24, ..., h) times its fixed scalar, given as signed
-    window digits ((w, h) host arrays, broadcast over the leading dims)."""
-    mult = _multiples(p, 1 << (TWIDDLE_WINDOW - 1))
-    return _ladder([mult], [_on(p.x.device, digits, signs)])
+def ladder_ref(mult: G1XYZZ, digits: torch.Tensor, src: Optional[torch.Tensor] = None) -> G1XYZZ:
+    """Plain version of B8: each lane's multiples gathered through src,
+    the phi table beside them for a GLV split, the lanes' digit columns
+    tiled, then _ladder."""
+    N = mult.x.shape[-1] if src is None else src.shape[0]
+    if src is not None:
+        mult = map_coords(lambda c: c[..., src.long()], mult)
+    tables = [mult]
+    if digits.shape[0] == 2:
+        beta = _beta_limbs(str(mult.x.device)).reshape(FP.n_limbs, 1, 1)
+        tables.append(G1XYZZ(fl.mont_mul(FP, mult.x, beta), mult.y, mult.zz, mult.zzz))
+    cols = digits[:, :, torch.arange(N, device=digits.device) % digits.shape[2]]  # (T, w, N)
+    return _ladder(tables, [(d.abs().long(), d < 0) for d in cols])
 
 
-def _mul_fixed_scalars_glv(p: G1XYZZ, digs1, sgns1, digs2, sgns2) -> G1XYZZ:
-    """GLV-split fixed-scalar multiply: each lane times t1 + t2 lambda, with
-    one table of multiples shared by both halves (phi maps the multiples
-    for one product per point: x *= beta)."""
-    mult = _multiples(p, 1 << (TWIDDLE_WINDOW - 1))
-    beta = fl.to_device(FP.const(glv_beta()), p.x.device)
-    beta = beta.reshape((FP.n_limbs,) + (1,) * (mult.x.dim() - 1))
-    mult_phi = G1XYZZ(fl.mont_mul(FP, mult.x, beta), mult.y, mult.zz, mult.zzz)
-    dev = p.x.device
-    return _ladder([mult, mult_phi], [_on(dev, digs1, sgns1), _on(dev, digs2, sgns2)])
+@launch.counted("g1_ladder")
+def ladder(mult: G1XYZZ, digits: torch.Tensor, src: Optional[torch.Tensor] = None) -> G1XYZZ:
+    """Fixed-scalar multiplies, one a lane, by the windowed ladder of
+    _ladder (c = TWIDDLE_WINDOW): kernel B8 (csrc/g1fft_kernels.cu) for
+    CUDA tensors, counted as `launch.g1_ladder`; the plain version,
+    ladder_ref, for CPU tensors. Nothing falls back.
+
+    mult: the multiples 0 .. 2^(c-1) of P points, each coordinate a
+    contiguous (24, 2^(c-1) + 1, P) int32 tensor (_multiples); digits:
+    (T, w, D) int32 signed c-bit digits, table t of lane l reading column
+    l mod D, with T = 1, or 2 for a GLV split whose second table is phi of
+    mult; src: (N,) int32, the point of each lane, or None for N = P lanes,
+    lane l on point l. The digits and src are this module's own tables and
+    are not checked on the card. Returns XYZZ (24, N)."""
+    dev = mult.x.device
+    if mult.x.dim() != 3:
+        raise ValueError(f"mx: shape {tuple(mult.x.shape)}, expected (24, m, P)")
+    P = mult.x.shape[-1]
+    for name, t in zip(("mx", "my", "mzz", "mzzz"), mult):
+        launch.check(t, name, torch.int32, (FP.n_limbs, _TABLE, P), dev)
+    if digits.dim() != 3 or digits.shape[0] not in (1, 2) or 0 in digits.shape:
+        raise ValueError(f"digits: shape {tuple(digits.shape)}, expected (1 or 2, w, D)")
+    launch.check(digits, "digits", torch.int32, tuple(digits.shape), dev)
+    N = P
+    if src is not None:
+        if src.dim() != 1:
+            raise ValueError(f"src: shape {tuple(src.shape)}, expected (N,)")
+        N = src.shape[0]
+        launch.check(src, "src", torch.int32, (N,), dev)
+    if dev.type == "cpu":
+        return ladder_ref(mult, digits, src)
+    launch.require_cuda(dev)
+    out = [torch.empty((FP.n_limbs, N), dtype=fl.LIMB_DTYPE, device=dev) for _ in range(4)]
+    if N == 0:
+        return G1XYZZ(*out)
+    rows = torch.stack(tuple(mult)).permute(3, 2, 0, 1).contiguous()  # (P, m, 4, 24)
+    T, w, D = digits.shape
+    rc = launch.kernels().kzg_g1_ladder(
+        rows.data_ptr(), digits.data_ptr(), None if src is None else src.data_ptr(),
+        _beta_limbs(str(dev)).data_ptr(), *(o.data_ptr() for o in out), T, w, D, N, TWIDDLE_WINDOW,
+        launch.stream(),
+    )
+    tracing.count("launch.g1_ladder")
+    launch.check_launch(rc, "g1_ladder")
+    return G1XYZZ(*out)
+
+
+def _signed(digits: np.ndarray, signs: np.ndarray) -> np.ndarray:
+    """(|digits|, signs) host tables -> signed int32 digits."""
+    return np.ascontiguousarray(np.where(signs, -digits, digits), dtype=np.int32)
+
+
+def _mul_fixed_scalars(p: G1XYZZ, digits: torch.Tensor) -> G1XYZZ:
+    """Each lane of p (24, ..., D) times its fixed scalar, given as signed
+    window digits ((1, w, D) on p's device, broadcast over the leading
+    dims; D = 1 serves any shape)."""
+    flat = map_coords(lambda c: c.reshape(FP.n_limbs, -1), p)
+    out = ladder(_multiples(flat, _TABLE - 1), digits)
+    return map_coords(lambda c: c.reshape(p.x.shape), out)
 
 
 # ---------------------------------------------------------------------------
@@ -175,10 +236,23 @@ def _mul_fixed_scalars_glv(p: G1XYZZ, digs1, sgns1, digs2, sgns2) -> G1XYZZ:
 # ---------------------------------------------------------------------------
 
 
-def _ifft_scale(p: G1XYZZ, ninv: int) -> G1XYZZ:
-    """Scale every lane by the fixed scalar 1/n."""
-    digits, signs = _digit_table([ninv], lambda t: _signed_digits_host(t, TWIDDLE_WINDOW))
-    return _mul_fixed_scalars(p, digits, signs)  # (w, 1) broadcasts over the lanes
+@lru_cache(maxsize=None)
+def _stage_digits(log_n: int, inverse: bool, s: int, device: str) -> torch.Tensor:
+    """Stage s's twiddle digits as B8 takes them, (1, w, 2^s), on `device`."""
+    return fl.to_device(_signed(*_stage_digit_tables(log_n, inverse)[s])[None], device)
+
+
+@lru_cache(maxsize=None)
+def _scale_digits(n: int, device: str) -> torch.Tensor:
+    """The digits of 1/n as B8 takes them, (1, w, 1), on `device`."""
+    digits, signs = _digit_table([pow(n, R - 2, R)], lambda t: _signed_digits_host(t, TWIDDLE_WINDOW))
+    return fl.to_device(_signed(digits, signs)[None], device)
+
+
+def _ifft_scale(p: G1XYZZ) -> G1XYZZ:
+    """Scale every lane by the fixed scalar 1/n (n: the last axis); one
+    digit column serves every lane."""
+    return _mul_fixed_scalars(p, _scale_digits(p.x.shape[-1], str(p.x.device)))
 
 
 @tracing.span("kzg.g1fft")
@@ -192,19 +266,18 @@ def fft_g1(p: G1XYZZ, inverse: bool = False) -> G1XYZZ:
         raise ValueError(f"fft_g1: length {n} is not a power of two")
     log_n = n.bit_length() - 1
     p = map_coords(bit_reverse, p)
-    tables = _stage_digit_tables(log_n, inverse)
     for s in range(log_n):
         h = 1 << s
         parts = [c.reshape(c.shape[:-1] + (n >> (s + 1), 2, h)) for c in p]
         a = G1XYZZ(*(c[..., 0, :] for c in parts))
         b = G1XYZZ(*(c[..., 1, :] for c in parts))
-        t = b if s == 0 else _mul_fixed_scalars(b, *tables[s])
+        t = b if s == 0 else _mul_fixed_scalars(b, _stage_digits(log_n, inverse, s, str(p.x.device)))
         lo = g1.add_unified(a, t)
         hi = g1.add_unified(a, g1.neg(t))
         # (..., blocks, 2, h) -> (..., n): the in-place DIT layout
         p = G1XYZZ(*(torch.stack([u, v], dim=-2).reshape(u.shape[:-2] + (n,)) for u, v in zip(lo, hi)))
     if inverse:
-        p = _ifft_scale(p, pow(n, R - 2, R))
+        p = _ifft_scale(p)
     return p
 
 
@@ -231,21 +304,29 @@ def _half_conv_taps(n: int):
     return np.array(offsets, dtype=np.int64), d1, s1, d2, s2
 
 
+@lru_cache(maxsize=None)
+def _half_conv_lanes(n: int, batch: int, device: str):
+    """B8's tables for `batch` half convolutions of length n, on `device`:
+    the taps' GLV digits (2, w, n/2 + 1) and the point of each lane (k,
+    d) of each convolution b, lane (b n + k)(n/2 + 1) + d: point b n + (k -
+    offset d) mod n."""
+    offsets, d1, s1, d2, s2 = _half_conv_taps(n)
+    src = (np.arange(n)[:, None] - offsets[None, :]) % n  # (n, taps)
+    src = (np.arange(batch)[:, None, None] * n + src[None]).reshape(-1).astype(np.int32)
+    return fl.to_device(np.stack([_signed(d1, s1), _signed(d2, s2)]), device), fl.to_device(src, device)
+
+
 @tracing.span("kzg.g1fft")
 def fk20_half_convolution(h_ext: G1XYZZ) -> G1XYZZ:
     """fft_g1(zero_top_half(ifft_g1(h_ext))) along the last axis as ONE
     circulant convolution with n/2 + 1 fixed taps:
-    out[k] = sum_d m[d] * h_ext[k - d]."""
-    n = h_ext.x.shape[-1]
-    offsets, d1, s1, d2, s2 = _half_conv_taps(n)
-    taps = offsets.shape[0]
-    src = (np.arange(n)[:, None] - offsets[None, :]) % n  # (n, taps)
-    src = fl.to_device(src.reshape(-1), h_ext.x.device)
-    gathered = map_coords(lambda c: c[..., src], h_ext)  # (..., n * taps)
-
-    def tile(t):  # (w, taps) -> (w, n * taps), lane k * taps + d
-        return np.tile(t[:, None, :], (1, n, 1)).reshape(t.shape[0], n * taps)
-
-    prods = _mul_fixed_scalars_glv(gathered, tile(d1), tile(s1), tile(d2), tile(s2))
-    prods = map_coords(lambda c: c.reshape(c.shape[:-1] + (n, taps)), prods)
+    out[k] = sum_d m[d] * h_ext[k - d]. The multiples are built once a
+    point, and one B8 launch multiplies every (point, tap) lane."""
+    shape = h_ext.x.shape
+    n = shape[-1]
+    taps = n // 2 + 1
+    digits, src = _half_conv_lanes(n, h_ext.x[0].numel() // n, str(h_ext.x.device))
+    pts = map_coords(lambda c: c.reshape(FP.n_limbs, -1), h_ext)
+    prods = ladder(_multiples(pts, _TABLE - 1), digits, src)  # (24, lanes)
+    prods = map_coords(lambda c: c.reshape(shape + (taps,)), prods)
     return map_coords(lambda c: c[..., 0], g1.tree_reduce(prods))

@@ -1,5 +1,5 @@
 """What the kernel wrappers (ops/cuda_msm.py, ops/cuda_fft.py,
-ops/cuda_gather.py, ops/field.py inv) share: their input checks, the
+ops/cuda_gather.py, ops/field.py inv, ops/g1fft.py ladder) share: their input checks, the
 launch check, the current stream and the kernel library.
 
 The launch counts live in the package's tracing registry (tracing.py), as

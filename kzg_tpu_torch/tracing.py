@@ -1,6 +1,6 @@
 """The package's one tracing module: named spans and plain counters.
 
-Counters (`count`) are always on: plain integers, keyed by name. The seven
+Counters (`count`) are always on: plain integers, keyed by name. The eight
 hand-written kernels' launches are counters `launch.<kernel>`: each
 wrapper is registered with `counted` and counts where it launches its
 kernel, and nowhere else; `launches()` reads those counts alone and

@@ -175,7 +175,7 @@ def test_add_points_checks_inputs_and_has_no_fallback():
     meta = g1.map_coords(lambda c: c.to("meta"), p)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_msm.add_points(meta, meta)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
 
 
 def _fr_values(B, n, seed=1):
@@ -200,7 +200,7 @@ def test_ntt_wrappers_check_inputs_and_have_no_fallback():
         cuda_fft.ntt_tile(x.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_fft.ntt_stage(x.to("meta"), 1)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
 
 
 def test_field_inv_has_no_fallback():
