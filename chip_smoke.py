@@ -3,120 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, and the result line is not printed):
-  1. card and builds: the card's name and power limit, torch and CUDA
-     versions; build the CUDA kernels (one nvcc per source; registers and
-     spills printed; B1, B2, B3, B7 and B8 must not spill, and B7 has no
-     stack), the native host
-     core and the C ABI (the embedded-interpreter shim and the C test
-     program), all at the same time;
-  2. the main paths at full protocol width, through the public API, with
-     the kernels' launch counts zeroed before each call and read after it:
-     EIP-4844: load the mainnet setup on the card, found with no path
-     given (builds the 20 x 4096 fixed-base table), commit to 64 seeded
-     random blobs and prove them;
-     EIP-7594: build the FK20 column points and their c = 8 tables on the
-     card, compute the cells and proofs of 16 seeded blobs in one batch
-     call (one launch of B8, FK20's ladders, a chunk), then the cells of
-     each blob through compute_cells;
-     verification: all 2048 cells and proofs of those 16 blobs in one
-     verify_cell_kzg_proof_batch call (a supernode's or a builder's check
-     of a block), then a sampling node's 8 columns of them (128 cells),
-     and verify_blob_kzg_proof_batch on the 64 blobs: True; False with a
-     cell changed, two proofs swapped, a proof of another blob; a
-     non-canonical blob raises;
-     recovery: three of the 16 cell blobs from a seeded random 64 of their
-     cells, from cells 0-63 and from all 128 (proofs only), and one
-     recover_cells_and_kzg_proofs_batch call of nine more (one recovery
-     pass, one launch of B8): cells and proofs byte-equal to the cells
-     call's; 63 cells raise before any launch;
-     multiproofs: the whole monomial table (c = 13, 20 x 4096, built on
-     the card), whose commitment to a blob's monomial coefficients equals
-     blob_to_kzg_commitment; proofs of those 4096 coefficients on cosets
-     of 16 and 64 points verify, and fail with one value changed;
-     das_extension of a blob's extension's even points gives its odd ones;
-     the bench path: the headline bench (kzg_tpu_torch.bench) at batch 8
-     and 3 iterations with its native check, one batch-8 stage split of
-     the fixed-base MSM (kzg_tpu_torch.benches.msm_stages, with kernel
-     B6's gather) and the gather probe's B6 call;
-     legacy FK20: multi at n2 = 8192 over blob 0's monomial coefficients
-     at chunk_len 64 (the cells layout: its files are the cells call's
-     column points, its proofs the cells call's) and 16 (k2 = 512), single
-     at n2 = 1024 (k2 = 1024): proofs verify through
-     verify_kzg_proof_multi and verify_kzg_proof, and fail with a value
-     changed;
-     the C ABI: a commitment and a cells call through the ctypes structs
-     (equal to the API's), then the repository's C test program
-     (native/test_c_abi.c, unmodified) linked against the shim, run on the
-     mainnet setup in a process of its own: ALL C ABI TESTS PASSED;
-  3. each kernel against its plain PyTorch version, limb for limb, at the
-     main paths' shapes (kernel on the card, plain version on a CPU copy
-     or on the card) and on edge cases (B1, B2, B3: identity operands,
-     P == Q, P == -Q; B4, B5: an odd batch, the values 0, 1 and r - 1); B1
-     at the 64-blob scan, the FK20 column MSM and the verify paths' two
-     variable-base MSMs, at m = 300 and m = 1, K = 1, with one doubling
-     lane in a 32-lane block, a block where every lane doubles, identity
-     rows and an identity sum at a restart; B4 and B5 at n = 2, 512, 1024,
-     2048, 4096 and 8192; B2 also on 133,120 lanes of FK20 column sums
-     gathered over the half convolution's taps, at 1, 7, 33, 240, 1000
-     and 2048 lanes,
-     with one doubling lane in a 32-lane block and a block where every
-     lane doubles; B3 at the verify paths' shapes (the proof MSM: 1 and 2 MSMs,
-     c = 13, 20 windows; the commitment MSM: c = 8, 32 windows), one
-     window, c = 1, and at 1024 lanes; B1, B2, B4 and B5 on the first
-     input of each shape that the recovery, multiproof and das_extension
-     calls gave them, and B2 and B4 on those of the legacy FK20 calls (the
-     chunk files' transforms 64 x 128, 16 x 512 and 1 x 1024 among them),
-     recorded while the calls ran;
-     B6 word for word at the probe's shape, at the MSM's (batch 8, 25-word
-     rows) and on edge cases (first and last rows, repeated indices, a
-     ragged count, widths 24 and 25, an unaligned table), and an index out
-     of range raises; B7 (the Fermat inversion) against pow_fixed on the
-     first input of each field and shape that the main path's calls gave
-     it, recorded while they ran, and on 0, 1 and m - 1 among 1152 lanes;
-     the commit, prove and verify calls launched B7 once per counted
-     inversion; B8 (FK20's and the G1 FFT's fixed-scalar ladders) against
-     its plain version on the card on the 9-blob recovery's half
-     convolution (74,880 lanes, two GLV tables, lanes through src), on
-     every stage of a forward and an inverse G1 FFT of 64 x 128 column
-     points (one table; the inverse's 1/n scale, one digit column) and on
-     the legacy FK20 calls' half convolutions (8,320, 131,584 and 525,312
-     lanes), recorded while the calls ran;
-  4. checks of the results: known answers from the setup file's own bytes
-     (unit blobs commit to Lagrange points; blobs of x^(64 + k) have known
-     cells and known proofs), a commitment and a proof against the CPU path
-     on a CPU copy of the table, and pairing checks of blob proofs and of
-     cell proofs (the cell's interpolant computed with Python ints); the
-     2048-cell verification's four device points and the blob
-     verification's two lincombs against the plain versions on a CPU copy;
-  5. timings (CUDA events) of each kernel and its plain version, with the
-     least time the card could take (and, for B6, the library call
-     index_select); kernels shorter than their wrapper's host overhead are
-     timed with their launches queued ahead; B1 at the 64-blob scan, with
-     its bound at the 10 products a step needs (7 more where a step
-     doubles) beside the earlier design's 17; B2 at 32,768, 133,120 and
-     256 lanes; B3 at both verify shapes, with its latency bounds (product
-     rounds, and one thread's products as in the earlier design); B4 and
-     B5 at each launch of one cells call; B7 at each field and shape the
-     main path gave it, with its latency bound (the chain of dependent
-     products at one multiply-add a clock); B8 at the 9-blob half
-     convolution, with its bound (operations) and its plain version's
-     time;
-  6. multi-device, in ranks of one gloo process group started in processes
-     of their own by kzg_tpu_torch.parallel.dryrun.launch, every rank on
-     this card (NCCL refuses two ranks on one card): 2 ranks on
-     blobs_mesh() run the batch entry points with mesh= at full width
-     (the 64 blobs' commitments byte-equal to phase 2's; verification
-     True, False with two proofs swapped; 63 blobs as without the mesh; a
-     non-canonical blob raises ValueError on both ranks, none hangs); 4
-     ranks on a 2 x 2 global_mesh run the dry run's programs at its small
-     shapes, then msm_fixed_sharded on the Lagrange table over 8 seeded
-     rows, msm_sharded over the 4096 setup points and fft_sharded and
-     ifft_sharded at n = 8192, held here against msm_fixed, msm, fft and
-     ifft. Each rank zeroes the launch counts before its calls and reads
-     them after (they are added to the kernels line's), and holds B1-B5
-     against their plain versions on the first input of each shape its
-     calls gave them; it prints its walls, launches and peak memory.
+Phases (any failure exits non-zero, and the result line is not printed;
+each phase's comments in main() say what it checks and why):
+  1. card and builds: the card's name, power limit and versions; the CUDA
+     kernels (one nvcc a source; B1-B3, B7 and B8 must not spill, B7 has
+     no stack), the native host core and the C ABI, built together;
+  2. the main paths at full protocol width through the public API, with
+     the kernels' launch counts read around each call: EIP-4844 commit
+     and prove of 64 seeded blobs on the mainnet setup; EIP-7594 cells and
+     proofs of 16 blobs, verification of their 2048 cells and of a
+     sampling node's 8 columns, blob verification (True; False with a
+     cell changed, proofs swapped, another blob's proof; a non-canonical
+     blob raises); recovery of single blobs and of a 9-blob batch (equal
+     to the cells call's); multiproofs on the monomial table;
+     das_extension; the bench path (headline bench, a stage split, the
+     gather probe); legacy FK20 (multi and single); the C ABI through
+     ctypes and the repository's C test program (native/test_c_abi.c);
+  3. checks of the results against independent answers: known answers
+     from the setup file's own bytes, the CPU path on a CPU copy of the
+     tables, and pairing checks of blob and cell proofs;
+  4. the kernel table: one row a kernel, each holding the kernel against
+     its plain version (limb for limb) at the timed shape and at the main
+     paths' other shapes that no check of a result stands in for, then
+     timing both (CUDA events) beside the bound, the least time the card
+     could take. Edge cases are the `gpu` tests' job
+     (tests/test_torch_package.py, tests/test_torch_g1fft.py);
+  5. multi-device in ranks of one gloo process group, every rank on this
+     card: 2 ranks run the batch entry points with mesh= (equal to phase
+     2's answers; a non-canonical blob raises on both ranks), 4 ranks run
+     the sharded MSMs and FFTs, held here against the plain versions on
+     the CPU copy.
 
 The last lines are the card line, a JSON line of kernel numbers, and
 {"ok": true, "device": {...}}.
@@ -222,73 +138,11 @@ def build_all():
             check(k not in NO_STACK or line.startswith("0 bytes stack frame"), f"ptxas stack frame in {k}: {line}")
 
 
-def shape_key(args):
-    import torch
-
-    return tuple(tuple(a.shape) if torch.is_tensor(a) else tuple(a.x.shape) if isinstance(a, tuple) else a
-                 for a in args)
-
-
-class Recording:
-    """Stands in its module for a kernel wrapper: keeps the wrapper's
-    first input of each shape, then calls it. The wrapper counts its
-    launches in the tracing registry by the kernel's name, whatever
-    stands in for it."""
-
-    def __init__(self, module, attr, seen):
-        self.module, self.attr, self.fn, self.seen = module, attr, getattr(module, attr), seen
-        setattr(module, attr, self)
-
-    def __call__(self, *args):
-        self.seen.setdefault(shape_key(args), args)
-        return self.fn(*args)
-
-    def stop(self):
-        setattr(self.module, self.attr, self.fn)
-
-
 # ---- the multi-device phase's ranks ---------------------------------------
 # Module-level, so that kzg_tpu_torch.parallel.dryrun.launch can start them
 # in processes of their own (spawn); every rank runs on cuda:0 under gloo.
 
-MESH_KERNELS = ("seg_scan_phase1", "add_unified", "horner", "ntt_tile", "ntt_stage")  # B1-B5
 MESH_ROWS = 8  # scalar rows of the 4-rank fixed-base MSM
-
-
-def start_recordings():
-    """Recording stand-ins for B1-B5: (the stand-ins, {kernel: {shape: first input}})."""
-    from kzg_tpu_torch.ops import cuda_fft, cuda_msm
-
-    seen = {name: {} for name in MESH_KERNELS}
-    recs = [Recording(cuda_msm, "seg_scan_phase1_mem", seen["seg_scan_phase1"]),
-            Recording(cuda_msm, "add_points", seen["add_unified"]),
-            Recording(cuda_msm, "horner_windows", seen["horner"]),
-            Recording(cuda_fft, "ntt_tile", seen["ntt_tile"]),
-            Recording(cuda_fft, "ntt_stage", seen["ntt_stage"])]
-    return recs, seen
-
-
-def check_recorded(seen) -> dict:
-    """Every recorded input through its kernel and the plain version, both
-    on the card, limb for limb (tolerance: exact). Returns {kernel:
-    [shapes, max abs limb error]}; raises SmokeFailure on a difference."""
-    import torch
-
-    from kzg_tpu_torch.ops import cuda_fft, cuda_msm, launch
-
-    refs = {"seg_scan_phase1": cuda_msm.seg_scan_phase1_mem_ref, "add_unified": cuda_msm.add_points_ref,
-            "horner": cuda_msm.horner_windows_ref, "ntt_tile": cuda_fft.ntt_tile_ref,
-            "ntt_stage": cuda_fft.ntt_stage_ref}
-    out = {}
-    for name, inputs in seen.items():
-        err = 0
-        for args in inputs.values():
-            got, ref = launch.WRAPPERS[name](*args), refs[name](*args)
-            for a, b in zip(*([x] if torch.is_tensor(x) else x for x in (got, ref))):
-                err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
-        check(err == 0, f"{name}: kernel and plain version differ on a sharded call's input (max abs limb error {err})")
-        out[name] = [len(inputs), err]
-    return out
 
 
 def mesh_inputs(s, device):
@@ -310,31 +164,22 @@ def mesh_inputs(s, device):
 
 def _rank_run(label, device, body) -> dict:
     """One rank's run of `body(walls)`: the kernels' launch counts zeroed
-    just before it and read just after, its peak device memory and walls,
-    and the kernels held against their plain versions on every input shape
-    it gave them."""
+    just before it and read just after, its peak device memory and walls."""
     import torch
     import torch.distributed as dist
 
     from kzg_tpu_torch.ops import launch
 
-    recs, seen = start_recordings()
     walls = {}
     torch.cuda.reset_peak_memory_stats()
     launch.reset_launches()
-    try:
-        out = body(walls)
-    finally:
-        counts = launch.launches()
-        for r in recs:
-            r.stop()
+    out = body(walls)
+    counts = launch.launches()
     peak = torch.cuda.max_memory_allocated()
-    recorded = check_recorded(seen)
     rank = dist.get_rank()
     print(f"{label} rank {rank}: OK; walls {json.dumps({k: round(v, 3) for k, v in walls.items()})} s; launches "
-          f"{counts}; peak device memory {peak / 2**30:.2f} GiB; kernels exact on the recorded shapes "
-          f"{ {k: v[0] for k, v in recorded.items()} }", flush=True)
-    return {**out, "walls": walls, "launches": counts, "peak_bytes": peak, "recorded": recorded}
+          f"{counts}; peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    return {**out, "walls": walls, "launches": counts, "peak_bytes": peak}
 
 
 def mesh_entry_points(device: str, blobs, commits, proofs) -> dict:
@@ -511,6 +356,34 @@ def fft_times_ms(B: int, n: int, products: int, peak_imad: float, value_bytes: i
     return products * MULADDS_PER_RMUL / peak_imad * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def doubling_lanes(p, q) -> int:
+    """Lanes where B2's addition takes its doubling: P == Q, neither the identity."""
+    from kzg_tpu_torch.ops import field as fl, g1
+    from kzg_tpu_torch.ops.field import FP
+
+    u1, u2, s1, s2 = fl.mul_many(FP, [(p.x, q.zz), (q.x, p.zz), (p.y, q.zzz), (q.y, p.zzz)])
+    need = ~g1.is_inf(p) & ~g1.is_inf(q) & fl.is_zero(FP, fl.sub(FP, u2, u1)) & fl.is_zero(FP, fl.sub(FP, s2, s1))
+    return int(need.sum())
+
+
+def roof(ops_ms: float, bytes_ms: float) -> tuple:
+    """(bound ms, what bounds it) of a pass that takes ops_ms at the
+    operations' rate and bytes_ms at the memory's."""
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def max_abs_err(got, ref) -> int:
+    """Largest limb difference between two outputs (a tensor, or tuples
+    and lists of them: points, the launches of a row), shapes equal."""
+    import torch
+
+    if torch.is_tensor(got):
+        check(got.shape == ref.shape, f"shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        return int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
+    check(len(got) == len(ref), f"{len(got)} outputs != {len(ref)}")
+    return max(max_abs_err(a, b) for a, b in zip(got, ref))
+
+
 def main() -> int:
     import torch
 
@@ -590,11 +463,6 @@ def main() -> int:
             check(inversions > 0 and counts["field_inv"] == inversions,
                   f"{label}: {counts['field_inv']} launches of field_inv for {inversions} inversions")
         return out, counts, secs
-
-    # B7's first input of each field and shape on the main path's calls,
-    # held against its plain version in section 3
-    inv_inputs = {}
-    inv_recording = Recording(fl, "inv", inv_inputs)
 
     commits, launches_commit, _ = counted_call(
         f"commit {N_BLOBS} blobs", lambda: api.blob_to_kzg_commitment_batch(blobs, s), inverts=True
@@ -694,22 +562,6 @@ def main() -> int:
     except ValueError as e:
         check("not canonical" in str(e), f"a non-canonical blob raised {e!r}")
     log(f"blob verification: {N_BLOBS} blobs True; a proof of another blob False; a non-canonical blob raises")
-    inv_recording.stop()
-
-    # The recovery, multiproof and das_extension calls give B1, B2, B4 and
-    # B5 shapes that no earlier call gives them: the vanishing
-    # polynomial's tree of small NTTs (batch 32 at n = 4 down to batch 1
-    # at n = 128), the division's transforms of n = 2 to 8192 at batch 1,
-    # the one-blob FK20 column MSM, the MSMs on the monomial table and on
-    # its first n columns. While they run, each of those four wrappers
-    # keeps its first input of each shape; section 3 holds the kernel
-    # against its plain version on every one of them.
-    path_inputs = {name: {} for name in ("seg_scan_phase1", "add_unified", "ntt_tile", "ntt_stage")}
-
-    recordings = [Recording(cuda_msm, "seg_scan_phase1_mem", path_inputs["seg_scan_phase1"]),
-                  Recording(cuda_msm, "add_points", path_inputs["add_unified"]),
-                  Recording(cuda_fft, "ntt_tile", path_inputs["ntt_tile"]),
-                  Recording(cuda_fft, "ntt_stage", path_inputs["ntt_stage"])]
 
     # EIP-7594 recovery of three cell blobs, from a seeded random 64 of
     # their 128 cells, from cells 0-63, and from all 128 (the proofs only);
@@ -736,19 +588,15 @@ def main() -> int:
             check(counts[name] > 0, f"recover_cells_and_kzg_proofs from {label} did not launch {name}")
         check(counts["g1_ladder"] == 1, f"recover_cells_and_kzg_proofs from {label} launched g1_ladder {counts['g1_ladder']} times")
     # a 9-blob block (EIP-7691) in one call: blobs 3-11, each from its own
-    # seeded 64 cells, the even cells or the odd ones; B8 keeps its input
-    # (the half convolution of 9 blobs) for section 3
+    # seeded 64 cells, the even cells or the odd ones
     half = list(range(0, 128, 2))
     batch_blobs = list(range(3, 12))
     batch_idx = [sorted(rec_rng.choice(128, 64, replace=False).tolist()) for _ in range(7)] + [half, [i + 1 for i in half]]
-    b8_inputs = {}
-    b8_recording = Recording(g1fft, "ladder", b8_inputs)
     passes = tracing.counters().get("recover.passes", 0)
     (rcs, rps), counts, secs = counted_call(
         "recover_cells_and_kzg_proofs_batch of blobs 3-11 (seeded 64 cells; the even cells; the odd cells)",
         lambda: api.recover_cells_and_kzg_proofs_batch(batch_idx, [[cells[b][i] for i in idx] for b, idx in zip(batch_blobs, batch_idx)], s),
     )
-    b8_recording.stop()
     recover_walls["batch of 9"], recover_launches["batch of 9"] = secs, counts
     check(rcs == [cells[b] for b in batch_blobs] and rps == [cell_proofs[b] for b in batch_blobs],
           "the batch recovery's cells or proofs differ from the cells call's")
@@ -813,8 +661,6 @@ def main() -> int:
     for name in ("ntt_tile", "ntt_stage"):
         check(counts[name] > 0, f"das_extension did not launch {name}")
     log("das_extension: the even points of blob 0's extension give its odd points")
-    for rec in recordings:
-        rec.stop()
 
     # the bench path: the headline bench with its native check, one batch-8
     # stage split of the fixed-base MSM (B6 gathers its sorted rows), and
@@ -835,7 +681,7 @@ def main() -> int:
           "the stage split's result differs from msm_fixed's")
     msm_stages.report(BENCH_BATCH, split, card)
     probe = gather_micro.make_probe(dev)
-    probe_out, counts, _ = counted_call("gather probe B6 call", lambda: gather_micro.dg(probe))
+    _, counts, _ = counted_call("gather probe B6 call", lambda: gather_micro.dg(probe))
     check(counts["gather_rows"] == 1, f"the gather probe launched {counts}")
 
     # legacy FK20 (the chunked-proof API) on the mainnet setup: multi at n2
@@ -847,12 +693,7 @@ def main() -> int:
     # 1024, the widest single whose half convolution, 525,312 lanes, stays
     # within 4x the cells call's 133,120). Proofs are checked through
     # verify_kzg_proof_multi and verify_kzg_proof (True; False with a value
-    # changed). While these calls run, B2, B4 and B8 keep their first input
-    # of each shape for section 3.
-    legacy_inputs = {"add_unified": {}, "ntt_tile": {}, "g1_ladder": {}}
-    recordings = [Recording(cuda_msm, "add_points", legacy_inputs["add_unified"]),
-                  Recording(cuda_fft, "ntt_tile", legacy_inputs["ntt_tile"]),
-                  Recording(g1fft, "ladder", legacy_inputs["g1_ladder"])]
+    # changed).
     legacy_walls, legacy_launches = {}, {}
     ext0 = [int.from_bytes(c[32 * i : 32 * i + 32], "big") for c in cells[0] for i in range(64)]  # brp order
 
@@ -903,8 +744,6 @@ def main() -> int:
     check(api.verify_kzg_proof(c1, args[0], ((y + 1) % R).to_bytes(32, "big"), args[2], s) is False,
           "legacy FK20 single: a proof passes with its value changed")
     log("legacy FK20 single n2 = 1024: 1024 proofs; 4 verify, a changed value fails")
-    for rec in recordings:
-        rec.stop()
 
     # the C ABI through ctypes (one commitment and one cells call, equal to
     # the API's), then the repository's C test program, unmodified, linked
@@ -927,354 +766,7 @@ def main() -> int:
     log(f"C ABI: {os.path.relpath(c_abi_build.build_dir(), repo)}/test_c_abi {os.path.relpath(setup_path, repo)}: "
         f"{n_ok} checks ok, ALL C ABI TESTS PASSED; wall {t_c_prog:.1f} s [{card}]")
 
-    # ---- 3. kernels against their plain versions -------------------------
-    max_err = {name: 0 for name in launch.WRAPPERS}
-
-    def compare(name, got, ref):
-        """Tolerance: exact. Both sides reduce every limb fully."""
-        for a, b in zip(got, ref):
-            check(a.shape == b.shape, f"{name}: shape {tuple(a.shape)} != {tuple(b.shape)}")
-            err = int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max())
-            max_err[name] = max(max_err[name], err)
-        check(max_err[name] == 0, f"{name}: kernel and plain version differ (max abs limb error {max_err[name]})")
-
-    # B7 on the main path's inputs (recorded in section 2) and on 0, 1 and
-    # m - 1 among 1152 seeded lanes of each field; plain version (pow_fixed)
-    # on the card
-    check(inv_inputs, "the main path's calls made no inversion")
-    inv_gen = np.random.default_rng(SEED + 13)
-    for spec in (FP, FR):
-        vals = [int.from_bytes(inv_gen.bytes(48), "big") % spec.modulus for _ in range(1152)]
-        vals[:3] = [0, 1, spec.modulus - 1]
-        inv_inputs[("edge", spec.name)] = (spec, spec.encode(vals, dev))
-    for spec, a in inv_inputs.values():
-        compare("field_inv", [fl.inv(spec, a)], [fl.pow_fixed(spec, a, spec.modulus - 2)])
-    inv_shapes = sorted((spec.name, tuple(a.shape)) for spec, a in inv_inputs.values())
-    log(f"field_inv: exact on the main path's inputs and the edge values at {len(inv_shapes)} shapes: {inv_shapes}")
-
-    # B8 on the 9-blob recovery's half convolution (recorded in section 2:
-    # 74,880 lanes, two GLV tables, lanes through src) and on every stage
-    # of a forward and an inverse G1 FFT of the 64 x 128 column points
-    # (one table, a digit column a twiddle; the inverse's 1/n scale, one
-    # digit column), recorded while they run; plain version on the card
-    check(len(b8_inputs) == 1, f"the 9-blob recovery gave g1_ladder {len(b8_inputs)} shapes")
-    ((b8_key, b8_args),) = b8_inputs.items()
-    check(b8_key[1][0] == 2 and b8_key[2] == (9 * 128 * 65,), f"the 9-blob recovery's half convolution: {b8_key}")
-    b8_got = g1fft.ladder(*b8_args)
-    b8_ref, t_b8_plain = timed(synced(lambda: g1fft.ladder_ref(*b8_args)))
-    compare("g1_ladder", b8_got, b8_ref)
-    del b8_got, b8_ref
-    g1_rows = g1.from_affine(g1.map_coords(lambda c: c.transpose(-1, -2).contiguous(), s.x_ext_fft_columns))  # (24, 64, 128)
-    fft_b8 = {}
-    fft_recording = Recording(g1fft, "ladder", fft_b8)
-    fwd = g1fft.fft_g1(g1_rows)
-    back = g1fft.fft_g1(fwd, inverse=True)
-    fft_recording.stop()
-    check(g1.xyzz_to_ints(back) == g1.xyzz_to_ints(g1_rows), "ifft_g1(fft_g1(P)) != P on the column points")
-    check({key[1] for key in fft_b8} >= {(1, 52, 1 << st) for st in range(1, 7)} | {(1, 52, 1)},
-          f"the G1 FFTs gave g1_ladder {sorted(fft_b8)}")
-    for args in fft_b8.values():
-        compare("g1_ladder", g1fft.ladder(*args), g1fft.ladder_ref(*args))
-    log(f"g1_ladder: exact on the 9-blob half convolution ({b8_key[2][0]} lanes, plain {t_b8_plain:.2f} s on the card) "
-        f"and on the G1 FFTs' {len(fft_b8)} shapes {sorted(fft_b8)}; ifft_g1(fft_g1(P)) == P")
-    del g1_rows, fwd, back, fft_b8
-
-    # B1 at the one-blob main-path shape, plain version on a CPU copy
-    one_scalars = eip4844._bytes_to_limbs(
-        torch.from_numpy(np.frombuffer(blobs[0], np.uint8).reshape(1, 4096, 32).copy()).to(dev)
-    )[0]
-    rows1, idx1, first1 = msm.phase1_inputs(table, one_scalars)
-    got = cuda_msm.seg_scan_phase1_mem(rows1, idx1, first1)
-    torch.cuda.synchronize()
-    (ref, t_ref1) = timed(lambda: cuda_msm.seg_scan_phase1_mem(rows1.cpu(), idx1.cpu(), first1.cpu()))
-    compare("seg_scan_phase1", got, ref)
-    log(f"B1 one blob: K={idx1.shape[0]} m={idx1.shape[1]} exact (CPU plain {t_ref1:.1f} s)")
-
-    # B1 at a small K on crafted rows: identity rows, equal keys, P == Q
-    # and P == -Q inside a run
-    base = table.x[:, 0, :48], table.y[:, 0, :48], table.inf[0, :48].clone()
-    base[2][5] = True  # identity rows
-    rows_s, R0 = msm._pack_point_rows(*base)
-    K_s, m_s = 8, 256
-    gen = np.random.default_rng(SEED + 1)
-    idx_s = gen.integers(0, 2 * R0, (K_s, m_s))
-    idx_s[1] = idx_s[0]  # P == Q
-    idx_s[3] = (idx_s[2] + R0) % (2 * R0)  # P == -Q
-    idx_s[4, ::3] = 5  # identity
-    first_s = gen.random((K_s, m_s)) < 0.3
-    first_s[1:4] = False
-    idx_s = torch.from_numpy(idx_s.astype(np.int32)).to(dev)
-    first_s = torch.from_numpy(first_s).to(dev)
-    got = cuda_msm.seg_scan_phase1_mem(rows_s, idx_s, first_s)
-    compare("seg_scan_phase1", got, cuda_msm.seg_scan_phase1_mem(rows_s.cpu(), idx_s.cpu(), first_s.cpu()))
-    log("B1 crafted K=8 m=256: exact")
-
-    # B1's edge shapes on the same rows: m not a multiple of the block's 32
-    # lanes, one lane, one step; one lane alone of its 32-lane block adding
-    # its running sum's own point (P == Q), a block where every lane does;
-    # identity rows and a restart on the identity (an identity sum)
-    def scan_case(K, m, seed, dbl):
-        g = np.random.default_rng(seed)
-        ix = g.integers(0, 2 * R0, (K, m))
-        fs = g.random((K, m)) < 0.25
-        if K > 5:
-            ix[4, 1::5] = 5  # a restart on the identity row
-            fs[4, 1::5] = True
-            ix[5, ::3] = 5
-        if dbl is not None:
-            ix[0, dbl] = np.where(ix[0, dbl] % R0 == 5, 6, ix[0, dbl])  # not the identity row
-            ix[1] = (ix[0] + 1) % (2 * R0)
-            ix[1, dbl] = ix[0, dbl]  # step 1 adds step 0's row to itself
-            fs[0, dbl] = True
-            fs[1, dbl] = False
-        return torch.from_numpy(ix.astype(np.int32)).to(dev), torch.from_numpy(fs).to(dev)
-
-    for label, K_e, m_e, dbl in (("m = 300", 6, 300, None), ("m = 1", 7, 1, None), ("K = 1", 1, 77, None),
-                                 ("one doubling lane of its block", 6, 96, [37]),
-                                 ("a block where every lane doubles", 6, 96, list(range(32, 64)))):
-        idx_e, first_e = scan_case(K_e, m_e, SEED + 5 + K_e + m_e, dbl)
-        got = cuda_msm.seg_scan_phase1_mem(rows_s, idx_e, first_e)
-        compare("seg_scan_phase1", got, cuda_msm.seg_scan_phase1_mem(rows_s.cpu(), idx_e.cpu(), first_e.cpu()))
-        log(f"B1 {label} (K={K_e} m={m_e}): exact")
-
-    # B1 at the 64-blob main-path shape: kernel against the plain version on the card
-    all_scalars = eip4844._bytes_to_limbs(
-        torch.from_numpy(np.frombuffer(b"".join(blobs), np.uint8).reshape(N_BLOBS, 4096, 32).copy()).to(dev)
-    )[0]
-    rows64, idx64, first64 = msm.phase1_inputs(table, all_scalars)
-    K64, m64 = idx64.shape
-    got64 = cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64)
-    ref64, t_plain_b1 = timed(
-        lambda: (cuda_msm.seg_scan_phase1_mem_ref(rows64, idx64, first64), torch.cuda.synchronize())[0]
-    )
-    compare("seg_scan_phase1", got64, ref64)
-    del ref64
-    log(f"B1 {N_BLOBS} blobs: K={K64} m={m64} exact against the plain version on the card")
-
-    # B1 on the FK20 column MSM of the 16 cell blobs (the table's batch
-    # dims: each column its own point set)
-    raw16 = torch.from_numpy(np.frombuffer(b"".join(cell_blobs), np.uint8).reshape(N_CELL_BLOBS, 4096, 32).copy())
-    _, poly16 = eip7594._cells_body(raw16.to(dev))
-    col_scalars = eip7594.column_scalars(poly16, 64)
-    rows_c, idx_c, first_c = msm.phase1_inputs(col_tables, col_scalars)
-    got_c = cuda_msm.seg_scan_phase1_mem(rows_c, idx_c, first_c)
-    compare("seg_scan_phase1", got_c, cuda_msm.seg_scan_phase1_mem_ref(rows_c, idx_c, first_c))
-    log(f"B1 column MSM of {N_CELL_BLOBS} blobs: K={idx_c.shape[0]} m={idx_c.shape[1]} exact against the plain version on the card")
-    del got_c, rows_c, idx_c, first_c
-
-    def edge_cases(p, q):
-        """Copies of p and q with P == Q in lanes 0-49 (every lane of the
-        kernels' first 32-lane block) and in lane 205 alone of its block,
-        P == -Q in 50-99, the identity on the right in 100-149 and on the
-        left in 150-199 (as far as there are lanes)."""
-        p = g1.map_coords(lambda c: c.clone(memory_format=torch.contiguous_format), p)
-        q = g1.map_coords(lambda c: c.clone(memory_format=torch.contiguous_format), q)
-        neg_p = g1.neg(p)
-        for k in range(4):
-            q[k][:, 0:50] = p[k][:, 0:50]
-            q[k][:, 205:206] = p[k][:, 205:206]
-            q[k][:, 50:100] = neg_p[k][:, 50:100]
-        for pt, lo in ((q, 100), (p, 150)):
-            pt.zz[:, lo : lo + 50] = 0
-            pt.zzz[:, lo : lo + 50] = 0
-        return p, q
-
-    # B2 on the half convolution's lanes: the column sums of the 16 cell
-    # blobs gathered over the circulant's 65 taps, as fk20_half_convolution
-    # gathers them (16 x 128 x 65 = 133,120 lanes), each added to the lane
-    # one tap on; plain version on the card
-    h_ext = msm.msm_fixed(col_tables, col_scalars)  # (24, 16, 128)
-    n_col = h_ext.x.shape[-1]
-    offsets = g1fft._half_conv_taps(n_col)[0]
-    src = torch.from_numpy(((np.arange(n_col)[:, None] - offsets[None, :]) % n_col).reshape(-1)).to(dev)
-    lanes = g1.map_coords(lambda c: c[..., src].reshape(c.shape[0], -1).contiguous(), h_ext)
-    p7, q7 = edge_cases(lanes, g1.map_coords(lambda c: torch.roll(c, 1, dims=-1), lanes))
-    ref7 = cuda_msm.add_points_ref(p7, q7)
-    compare("add_unified", cuda_msm.add_points(p7, q7), ref7)
-    log(f"B2 half-convolution lanes of {N_CELL_BLOBS} blobs ({p7.x.shape[-1]} lanes, with edge cases): "
-        f"exact against the plain version on the card")
-    del h_ext, lanes, ref7
-
-    # B2: EIP-4844 main-path lane count (chunk aggregates of the 64-blob
-    # scan), 2048 and a ragged 1000 with edge cases; plain version on a CPU copy
-    agg = g1.map_coords(lambda c: c[:, K64 - 1, :].contiguous(), got64)
-    agg_r = g1.map_coords(lambda c: torch.roll(c, 1, dims=-1).contiguous(), agg)
-    b2_cases = [("main", agg_r, agg)]
-    for M in (2048, 1000):
-        b2_cases.append((f"{M}, with edge cases", *edge_cases(g1.map_coords(lambda c: c[:, :M], agg),
-                                             g1.map_coords(lambda c: c[:, M : 2 * M], agg))))
-    for M in (1, 7, 33, 240):
-        b2_cases.append((f"{M}, with edge cases", *edge_cases(g1.map_coords(lambda c: c[:, :M], agg),
-                                                              g1.map_coords(lambda c: c[:, M : 2 * M], agg))))
-    for label, p, q in b2_cases:
-        ref = cuda_msm.add_points(g1.map_coords(lambda c: c.cpu(), p), g1.map_coords(lambda c: c.cpu(), q))
-        compare("add_unified", cuda_msm.add_points(p, q), ref)
-        log(f"B2 {label} ({p.x.shape[-1]} lanes): exact")
-
-    # B4 and B5 at the EIP-7594 path's shapes: the inverse 4096 and forward
-    # 8192 of 16 blobs, the 64 x 128 Toeplitz transforms of 16 blobs; an
-    # odd batch; values 0, 1 and r - 1
-    blob_m16 = fl.from_canonical(FR, eip4844._bytes_to_limbs(raw16.to(dev))[0])
-    gen = np.random.default_rng(SEED + 2)
-
-    def random_fr(B, n):
-        vals = [int.from_bytes(gen.bytes(32), "little") % R for _ in range(B * n)]
-        vals[:6] = [0, 1, R - 1, 0, 1, R - 1]
-        return torch.from_numpy(FR.encode_host(vals).reshape(16, B, n)).to(dev)
-
-    fft_cases = [
-        ("ifft 4096 x 16", cuda_fft.bit_reverse(blob_m16).contiguous(), True),
-        ("fft 8192 x 16", torch.cat([poly16, torch.zeros_like(poly16)], dim=-1).contiguous(), False),
-        ("fft 128 x (16, 64)", random_fr(16 * 64, 128), False),
-        ("ifft 8192 x 3 (edge values)", random_fr(3, 8192), True),
-        ("ifft 4096 x 3 (edge values)", random_fr(3, 4096), True),
-        ("fft 2048 x 5 (edge values)", random_fr(5, 2048), False),
-        ("fft 1024 x 3 (edge values)", random_fr(3, 1024), False),
-        ("ifft 512 x 5 (edge values)", random_fr(5, 512), True),
-        ("fft 2 x 7 (edge values)", random_fr(7, 2), False),
-        ("fft 8192 x 1 (edge values)", random_fr(1, 8192), False),
-        ("ifft 8192 x 1 (edge values)", random_fr(1, 8192), True),
-    ]
-    # the vanishing polynomial's tree: batch x n = 32 x 4 ... 1 x 128
-    for lv in range(6):
-        B, n = 32 >> lv, 4 << lv
-        fft_cases += [(f"{'i' * inverse}fft {n} x {B} (edge values)", random_fr(B, n), inverse) for inverse in (False, True)]
-    for label, x, inverse in fft_cases:
-        n = x.shape[-1]
-        log_n = n.bit_length() - 1
-        got = cuda_fft.ntt_tile(x, inverse)
-        ref = cuda_fft.ntt_tile_ref(x, inverse)
-        compare("ntt_tile", [got], [ref])
-        for st in range(cuda_fft.tile_stages(log_n), log_n):
-            got_s = cuda_fft.ntt_stage(ref, st, inverse)
-            ref = cuda_fft.ntt_stage_ref(ref, st, inverse)
-            compare("ntt_stage", [got_s], [ref])
-        log(f"B4/B5 {label}: exact ({log_n - cuda_fft.tile_stages(log_n)} B5 stages)")
-
-    # B1, B2, B4 and B5 on the inputs that the recovery, multiproof and
-    # das_extension calls gave them, one of each shape (recorded in
-    # section 2); plain versions on the card. The shapes named in the
-    # recording's comment must be among them.
-    mono_rows = 2 * mono.x[0].numel()
-    want = {"seg_scan_phase1": {2 * col_tables.x[0].numel(), mono_rows, mono_rows * 16 // 4096, mono_rows * 64 // 4096},
-            "ntt_tile": {((16, 32 >> lv, 4 << lv), inv) for lv in range(6) for inv in (False, True)}
-            | {((16, 1, 8192), inv) for inv in (False, True)}}
-    seen = {"seg_scan_phase1": {key[0][0] for key in path_inputs["seg_scan_phase1"]},
-            "ntt_tile": set(path_inputs["ntt_tile"])}
-    for name, keys in want.items():
-        check(keys <= seen[name], f"{name}: the recorded shapes lack {sorted(keys - seen[name])}")
-    refs = {"seg_scan_phase1": cuda_msm.seg_scan_phase1_mem_ref, "add_unified": cuda_msm.add_points_ref,
-            "ntt_tile": cuda_fft.ntt_tile_ref, "ntt_stage": cuda_fft.ntt_stage_ref}
-    for name, ref_fn in refs.items():
-        check(path_inputs[name], f"the recovery, multiproof and das_extension calls launched no {name}")
-        for args in path_inputs[name].values():
-            got, ref = launch.WRAPPERS[name](*args), ref_fn(*args)
-            compare(name, [got] if torch.is_tensor(got) else got, [ref] if torch.is_tensor(ref) else ref)
-        log(f"{name}: exact on the recovery, multiproof and das_extension calls' inputs at "
-            f"{len(path_inputs[name])} shapes: {sorted(path_inputs[name])}")
-    del path_inputs
-
-    # B2, B4 and B8 on the legacy FK20 calls' inputs (recorded in section
-    # 2), plain versions on the card: the chunk files' transforms and the
-    # half convolutions' 8,320, 131,584 and 525,312 lanes among them
-    want_lanes = {128 * 65, 512 * 257, 1024 * 513}
-    seen_lanes = {key[2][0] for key in legacy_inputs["g1_ladder"] if len(key) == 3 and key[2] is not None}
-    check(want_lanes <= seen_lanes, f"g1_ladder: the legacy calls' lanes lack {sorted(want_lanes - seen_lanes)}")
-    want_ntt = {((16, 64, 128), False), ((16, 16, 512), False), ((16, 1, 1024), False)}
-    check(want_ntt <= set(legacy_inputs["ntt_tile"]), f"ntt_tile: the legacy calls' shapes lack "
-          f"{sorted(want_ntt - set(legacy_inputs['ntt_tile']))}")
-    refs["g1_ladder"] = g1fft.ladder_ref
-    for name in ("add_unified", "ntt_tile", "g1_ladder"):
-        for args in legacy_inputs[name].values():
-            got, ref = launch.WRAPPERS[name](*args), refs[name](*args)
-            compare(name, [got] if torch.is_tensor(got) else got, [ref] if torch.is_tensor(ref) else ref)
-        log(f"{name}: exact on the legacy FK20 calls' inputs at {len(legacy_inputs[name])} shapes: "
-            f"{sorted(legacy_inputs[name])}")
-    del legacy_inputs
-
-    # B3 at the verify paths' shapes: the window sums of the 2048-cell
-    # call's proof MSM (2 MSMs of 2048 points, c = 13, 20 windows), and of
-    # its first MSM alone; plain version on the card
-    cb, idx, cl, pr = verify_cases[N_CELL_BLOBS * 128]
-    unique_cb, cidx = eip7594._deduplicate_with_indices(cb)
-    r_cells = eip7594._batch_challenge_bytes(unique_cb, cidx, idx, cl, pr)
-    cell_inputs = eip7594._verify_cell_inputs(unique_cb, cidx, idx, cl, pr, r_cells, dev)
-    c_v = msm.default_window(cell_inputs[0].x.shape[-1], fixed_base=False)
-    win2 = msm.window_sums(cell_inputs[0], cell_inputs[1], c_v)
-    check(c_v == 13 and tuple(win2.x.shape) == (24, 2, 20), f"unexpected proof MSM windows c={c_v} {tuple(win2.x.shape)}")
-    win1 = g1.map_coords(lambda t: t[:, :1].contiguous(), win2)
-    # and the commitment MSM (1 MSM of 16 points, c = 8, 32 windows), one
-    # window, c = 1
-    c_c = msm.default_window(cell_inputs[2].x.shape[-1], fixed_base=False)
-    win_c = msm.window_sums(cell_inputs[2], cell_inputs[3], c_c)
-    check(c_c == 8 and tuple(win_c.x.shape) == (24, 1, 32), f"unexpected commitment MSM windows c={c_c} {tuple(win_c.x.shape)}")
-    # B1 at the verify paths' two variable-base MSMs (the proof MSM and the
-    # commitment MSM of the 2048-cell call), plain version on the card
-    for label, pts_v, sc_v, c_w in (("proof MSM", cell_inputs[0], cell_inputs[1], c_v),
-                                    ("commitment MSM", cell_inputs[2], cell_inputs[3], c_c)):
-        rows_v, lay_v = msm._var_inputs(pts_v, sc_v, c_w)[:2]
-        got = cuda_msm.seg_scan_phase1_mem(rows_v, lay_v.idx, lay_v.first)
-        compare("seg_scan_phase1", got, cuda_msm.seg_scan_phase1_mem_ref(rows_v, lay_v.idx, lay_v.first))
-        log(f"B1 the 2048-cell {label}: K={lay_v.K} m={lay_v.m} exact against the plain version on the card")
-    for label, win, c_w in (("2 MSMs, the 2048-cell proof MSM", win2, c_v), ("1 MSM of the proof MSM", win1, c_v),
-                            ("the 2048-cell commitment MSM", win_c, c_c),
-                            ("1 MSM, one window", g1.map_coords(lambda t: t[:, :, :1].contiguous(), win1), c_v),
-                            ("2 MSMs at c = 1", win2, 1)):
-        ref = cuda_msm.horner_windows_ref(win, c_w)
-        compare("horner", cuda_msm.horner_windows(win, c_w), ref)
-        log(f"B3 {label} ({win.x.shape[1]} MSMs, c = {c_w}, {win.x.shape[2]} windows): exact")
-
-    # B3 at 1024 lanes of 20 windows (doubled Lagrange table points, so zz
-    # is not one) with edge lanes: all windows the identity (lane 0); the
-    # identity at the start and in one window (lane 1); W_18 equal to the
-    # doubled accumulator 2^13 W_19 (P == Q, lane 2) and its negative
-    # (P == -Q, lane 3); plain version on the card
-    aff = g1.G1Aff(table.x[..., :1024].transpose(1, 2), table.y[..., :1024].transpose(1, 2), table.inf[:, :1024].T)
-    wide = g1.map_coords(lambda t: t.contiguous(), g1.dbl(g1.from_affine(aff)))  # (24, 1024, 20)
-    lead = g1.map_coords(lambda t: t[:, 2:4, 19], wide)
-    for _ in range(13):
-        lead = g1.dbl(lead)
-    for k in range(4):
-        wide[k][:, 2, 18] = lead[k][:, 0]
-        wide[k][:, 3, 18] = g1.neg(lead)[k][:, 1]
-    for t in (wide.zz, wide.zzz):
-        t[:, 0, :] = 0
-        t[:, 1, 19] = 0
-        t[:, 1, 7] = 0
-    ref = cuda_msm.horner_windows_ref(wide, 13)
-    compare("horner", cuda_msm.horner_windows(wide, 13), ref)
-    log(f"B3 1024 lanes (c = 13, 20 windows, with identity, P == Q and P == -Q lanes): exact against the plain "
-        f"version on the card")
-
-    # B6 word for word against index_select: the probe's shape, the MSM's
-    # (batch 8: the sorted rows B1 reads), and edge cases
-    def compare_rows(label, table_t, idx_t):
-        got = cuda_gather.gather_rows(table_t, idx_t)
-        compare("gather_rows", [got], [cuda_gather.gather_rows_ref(table_t, idx_t)])
-        log(f"B6 {label} ({idx_t.numel()} rows of {table_t.shape[1]} words): exact")
-
-    compare("gather_rows", [probe_out], [cuda_gather.gather_rows_ref(probe["slice"], probe["src_mod"])])
-    log(f"B6 probe shape ({probe['src_mod'].numel()} rows of 24 words from a {gather_micro.N}-row slice): exact")
-    msm_in = gather_micro.msm_probe(table, BENCH_BATCH)
-    compare_rows(f"MSM shape, batch {BENCH_BATCH}", msm_in["rows"], msm_in["idx"])
-    gen = np.random.default_rng(SEED + 4)
-    for width in (24, 25):
-        tab_e = torch.from_numpy(gen.integers(-2**31, 2**31, (1000, width), dtype=np.int64).astype(np.int32)).to(dev)
-        edge = np.concatenate([[0, 999, 999, 0, 5, 5, 5], gen.integers(0, 1000, 993)]).astype(np.int32)
-        compare_rows(f"edge rows, width {width}", tab_e, torch.from_numpy(edge).to(dev))
-        compare_rows(f"one row, width {width}", tab_e, torch.from_numpy(edge[1:2]).to(dev))
-        unaligned = torch.empty(1000 * width + 1, dtype=torch.int32, device=dev)[1:].view(1000, width)
-        unaligned.copy_(tab_e)
-        compare_rows(f"unaligned table, width {width}", unaligned, torch.from_numpy(edge[:777]).to(dev))
-        for bad in (1000, -1):
-            try:
-                cuda_gather.gather_rows(tab_e, torch.tensor([3, bad, 4], dtype=torch.int32, device=dev))
-                raise SmokeFailure(f"B6: index {bad} of a 1000-row table did not raise")
-            except IndexError:
-                pass
-    log("B6: indices 1000 and -1 of a 1000-row table raise IndexError")
-
-    # ---- 4. checks of the result -----------------------------------------
+    # ---- 3. checks of the result -----------------------------------------
     with open(setup_path) as f:
         tokens = f.read().split()
     lagrange_hex = tokens[2 : 2 + 4096]
@@ -1340,6 +832,10 @@ def main() -> int:
     # interpolation commitment) and the 64-blob verification's two lincombs
     # (one batch-2 variable-base MSM over 129 points), on the card and
     # through the plain versions on a CPU copy
+    cb, idx, cl, pr = verify_cases[N_CELL_BLOBS * 128]
+    unique_cb, cidx = eip7594._deduplicate_with_indices(cb)
+    r_cells = eip7594._batch_challenge_bytes(unique_cb, cidx, idx, cl, pr)
+    cell_inputs = eip7594._verify_cell_inputs(unique_cb, cidx, idx, cl, pr, r_cells, dev)
     cpu_s.monomial64_table = msm.FixedBaseTable(*(t.cpu() for t in s.monomial64_table[:3]), s.monomial64_table.c)
 
     def to_cpu(x):
@@ -1382,178 +878,261 @@ def main() -> int:
         check(not native.pairings_verify(bad, g2_gen, pi, s.g2_monomial[64]), "a wrong cell passes the pairing check")
     log(f"pairing: {len(pair_cells)} cell proofs verify against their blobs' commitments")
 
-    # ---- 5. timings --------------------------------------------------------
-    p_main, q_main = agg_r, agg
-    t_b1 = cuda_ms(lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64), 20)
-    E64 = N_BLOBS * 20 * 4096  # elements the data needs (the rest is padding)
-    n_mdbl = mdbl_steps(rows64, idx64, first64, got64)
-    b1_ops = (E64 * cuda_msm.MADD_FMULS_DISTINCT + n_mdbl * cuda_msm.MDBL_FMULS) * MULADDS_PER_FMUL
-    b1_ops_all = E64 * cuda_msm.MADD_FMULS * MULADDS_PER_FMUL  # the earlier design's 17 products a step
-    b1_bytes = rows64.numel() * 4 + idx64.numel() * 4 + first64.numel() + 4 * 24 * 4 * idx64.numel()
-    log(f"seg_scan_phase1 64 blobs (K={K64} m={m64}, {E64} elements, {n_mdbl} steps double): {t_b1:.4f} ms; "
-        f"bound {max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3:.4f} ms (operations "
-        f"{b1_ops / peak_imad * 1e3:.4f} at {cuda_msm.MADD_FMULS_DISTINCT} products a step, bytes "
-        f"{b1_bytes / HBM_BYTES_PER_S * 1e3:.4f}); at all {cuda_msm.MADD_FMULS} products a step "
-        f"{b1_ops_all / peak_imad * 1e3:.4f} ms [{card}]")
+    # ---- 4. the kernel table ------------------------------------------------
+    # One row a kernel: its input at the timed shape, the kernel call, the
+    # plain call and the bound, and the other shapes the main paths give
+    # the kernel where no end-to-end check above stands in for its plain
+    # version. kernel_row holds the kernel against the plain version at
+    # each before it times either, so that no row times a wrong kernel;
+    # edge cases are the `gpu` tests'. A new kernel adds one row here (and
+    # one NO_SPILL entry).
+    rows_out = []
 
-    def doubling_lanes(p, q):
-        """Lanes where the addition takes its doubling: P == Q, neither the identity."""
-        u1, u2, s1, s2 = fl.mul_many(FP, [(p.x, q.zz), (q.x, p.zz), (p.y, q.zzz), (q.y, p.zzz)])
-        need = ~g1.is_inf(p) & ~g1.is_inf(q) & fl.is_zero(FP, fl.sub(FP, u2, u1)) & fl.is_zero(FP, fl.sub(FP, s2, s1))
-        return int(need.sum())
+    def kernel_row(name, source, replaces, launches, bound, checks=(), reps=20, plain_reps=3,
+                   queue_ahead=False, plain_queue_ahead=False, library=None):
+        """`launches`: the (kernel, plain) calls the row times, each timed
+        alone and the times summed; `checks`: (kernel, plain) calls at more
+        shapes, not timed. bound(the first launch's output) -> (bound ms,
+        what bounds it, a note for the log). Tolerance: exact, as both
+        sides reduce every limb fully. With `queue_ahead`
+        (`plain_queue_ahead`) the kernel's (the plain version's) launches
+        are queued ahead of the timed window (kernels shorter than their
+        wrapper's host overhead)."""
+        err = 0
+        for k, (kernel, plain) in enumerate((*launches, *checks)):
+            got = kernel()
+            if k == 0:
+                bound_ms, by, note = bound(got)
+            e = max_abs_err(got, plain())
+            check(e == 0, f"{name}: kernel and plain version differ at input {k} (max abs limb error {e})")
+            err = max(err, e)
+            del got
+        ms = sum(cuda_ms(kernel, reps, queue_ahead) for kernel, _ in launches)
+        plain_ms = sum(cuda_ms(plain, plain_reps, plain_queue_ahead) for _, plain in launches)
+        library_ms = None if library is None else cuda_ms(library, reps, queue_ahead)
+        rows_out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                         "launches": None,  # the main path's and the ranks', filled in below
+                         "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                         "bound_ms": round(bound_ms, 4), "bound_by": by,
+                         "library_ms": None if library_ms is None else round(library_ms, 4)})
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        log(f"{name}: exact at {len(launches) + len(checks)} inputs; {ms:.4f} ms (plain {plain_ms:.4f} ms{lib}); "
+            f"bound {bound_ms:.4f} ms, {by}, {bound_ms / ms:.0%} of it; {note} [{card}]")
 
-    # B2 at the main path's 32,768 lanes (the kernels line), the half
-    # convolution's 133,120 and a 256-lane tail launch. The
-    # operations bound counts the 14 products of every lane and the 9 of
-    # the doubling in the lanes that take it; the earlier design ran all 23
-    # in every lane, a bound kept beside it.
-    b2 = {}
-    for label, p, q in (("main", p_main, q_main), ("half convolution", p7, q7),
-                        ("tail", *(g1.map_coords(lambda c: c[:, :256].contiguous(), x) for x in (p_main, q_main)))):
-        M = p.x.shape[-1]
-        n_dbl = doubling_lanes(p, q)
-        t_ops = (M * cuda_msm.ADD_FMULS_DISTINCT + n_dbl * cuda_msm.DBL_FMULS) * MULADDS_PER_FMUL / peak_imad * 1e3
-        t_ops_all = M * cuda_msm.ADD_FMULS * MULADDS_PER_FMUL / peak_imad * 1e3
-        t_bytes = 12 * 24 * 4 * M / HBM_BYTES_PER_S * 1e3
-        ms = cuda_ms(lambda: cuda_msm.add_points(p, q), 50, queue_ahead=True)
-        b2[label] = (ms, t_ops, t_bytes)
-        log(f"add_unified {label} ({M} lanes, {n_dbl} doubling): {ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.4f}, bytes {t_bytes:.4f}; "
-            f"all 23 products in every lane {t_ops_all:.4f}) [{card}]")
-    del p7, q7
-    t_b2, b2_ops_ms, b2_bytes_ms = b2["main"]
-    t_b2_plain = cuda_ms(lambda: cuda_msm.add_points_ref(p_main, q_main), 3)
+    # B1 at the 64-blob scan, and at the FK20 column MSM of the 16 cell
+    # blobs (the column tables: each column its own point set); its bound
+    # counts the 10 products of a step and the 7 more of a step that
+    # doubles (the earlier design's 17 a step beside it)
+    raw64 = torch.from_numpy(np.frombuffer(b"".join(blobs), np.uint8).reshape(N_BLOBS, 4096, 32).copy()).to(dev)
+    rows64, idx64, first64 = msm.phase1_inputs(table, eip4844._bytes_to_limbs(raw64)[0])
+    K64, m64 = idx64.shape
+    raw16 = raw64[:N_CELL_BLOBS]
+    poly16 = eip7594._cells_body(raw16)[1]
+    rows_c, idx_c, first_c = msm.phase1_inputs(col_tables, eip7594.column_scalars(poly16, 64))
 
-    # B4: the three launches of one 16-blob call; B5: its three stage
-    # launches. Each kernel's bound is the sum of its launches' bounds.
-    # The bound counts the 64 bytes per Fr value that the wrappers' (16,
-    # ...) int32 layout of 16-bit limbs moves; "bytes32" and "bound32" are
-    # the bytes term and the bound at 32 bytes per value, a packed layout.
-    fft_rows = {k: {"ms": 0.0, "plain": 0.0, "bound": 0.0, "ops": 0.0, "bytes": 0.0, "bytes32": 0.0, "bound32": 0.0}
-                for k in ("ntt_tile", "ntt_stage")}
+    def b1_bound(sums):
+        E = N_BLOBS * 20 * 4096  # elements the data needs (the rest is padding)
+        n_mdbl = mdbl_steps(rows64, idx64, first64, sums)
+        ops = (E * cuda_msm.MADD_FMULS_DISTINCT + n_mdbl * cuda_msm.MDBL_FMULS) * MULADDS_PER_FMUL / peak_imad * 1e3
+        nbytes = (rows64.numel() * 4 + idx64.numel() * 4 + first64.numel()
+                  + 4 * 24 * 4 * idx64.numel()) / HBM_BYTES_PER_S * 1e3
+        ops17 = E * cuda_msm.MADD_FMULS * MULADDS_PER_FMUL / peak_imad * 1e3
+        return (*roof(ops, nbytes), f"K={K64} m={m64}, {E} elements, {n_mdbl} steps double, "
+                f"{cuda_msm.SCAN_GROUP} warps a block; operations {ops:.4f} ms at {cuda_msm.MADD_FMULS_DISTINCT} "
+                f"products a step, bytes {nbytes:.4f} ms; at all {cuda_msm.MADD_FMULS} products a step {ops17:.4f} ms; "
+                f"also exact at the column MSM, K={idx_c.shape[0]} m={idx_c.shape[1]}")
 
-    def fft_timing(name, label, run, run_plain, products, B, n):
-        ms = cuda_ms(run, 20, queue_ahead=True)
-        plain = cuda_ms(run_plain, 3)
-        t_ops, t_bytes = fft_times_ms(B, n, products, peak_imad)
-        t_bytes32 = fft_times_ms(B, n, products, peak_imad, FR_BYTES)[1]
-        row = fft_rows[name]
-        for key, v in (("ms", ms), ("plain", plain), ("bound", max(t_ops, t_bytes)), ("ops", t_ops),
-                       ("bytes", t_bytes), ("bytes32", t_bytes32), ("bound32", max(t_ops, t_bytes32))):
-            row[key] += v
-        log(f"{name} {label}: {ms:.4f} ms (plain {plain:.2f} ms, bound {max(t_ops, t_bytes):.4f} ms, "
-            f"{'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.4f}, bytes {t_bytes:.4f}, "
-            f"bytes at 32 B/value {t_bytes32:.4f} ms) [{card}]")
+    kernel_row("seg_scan_phase1", "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:94",
+               [(lambda: cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64),
+                 lambda: cuda_msm.seg_scan_phase1_mem_ref(rows64, idx64, first64))], b1_bound,
+               checks=[(lambda: cuda_msm.seg_scan_phase1_mem(rows_c, idx_c, first_c),
+                        lambda: cuda_msm.seg_scan_phase1_mem_ref(rows_c, idx_c, first_c))], plain_reps=1)
+    del rows_c, idx_c, first_c
 
-    for label, x, inverse in fft_cases[:3]:
-        B, n = x.shape[1:]
-        log_n = n.bit_length() - 1
-        S = cuda_fft.tile_stages(log_n)
-        prods = B * ((n // 2) * (S - 1) + (n if inverse else 0))  # stage 0's twiddle is one
-        fft_timing("ntt_tile", label, lambda: cuda_fft.ntt_tile(x, inverse),
-                   lambda: cuda_fft.ntt_tile_ref(x, inverse), prods, B, n)
-        y = cuda_fft.ntt_tile(x, inverse)
-        for st in range(S, log_n):
-            fft_timing("ntt_stage", f"{label} stage {st}", lambda: cuda_fft.ntt_stage(y, st, inverse),
-                       lambda: cuda_fft.ntt_stage_ref(y, st, inverse), B * n // 2, B, n)
+    # B2 at the 64-blob scan's 32,768 chunk sums, each added to its
+    # neighbour's; the bound counts the 14 products of every lane and the 9
+    # of the doubling in the lanes that take it (the earlier design's 23 in
+    # every lane beside it)
+    q2 = g1.map_coords(lambda c: c[:, K64 - 1, :].contiguous(), cuda_msm.seg_scan_phase1_mem(rows64, idx64, first64))
+    p2 = g1.map_coords(lambda c: torch.roll(c, 1, dims=-1).contiguous(), q2)
+    del raw64, rows64, idx64, first64
 
-    # B3 at the 2048-cell call's two launches: the proof MSM (2 MSMs, c =
-    # 13, 20 windows) and the commitment MSM (1 MSM of 16 points, c = 8, 32
-    # windows). Bounds: the card's throughput (operations over
-    # every SM's multiply-add rate, or bytes), and the latency of the
-    # dependent chain at one multiply-add per clock: (w - 1)(3 c + 4)
-    # product rounds deep, and (w - 1)(9 c + 23) products for one thread
-    # running them all (the earlier design).
-    b3 = {}
-    for label, win, c_w in (("proof MSM", win2, c_v), ("commitment MSM", win_c, c_c)):
-        nb_w, w_w = win.x.shape[1:]
-        ms = cuda_ms(lambda: cuda_msm.horner_windows(win, c_w), 20)
-        plain = cuda_ms(lambda: cuda_msm.horner_windows_ref(win, c_w), 2)
-        prods = (w_w - 1) * (cuda_msm.DBL_FMULS * c_w + cuda_msm.ADD_FMULS)
-        rounds = (w_w - 1) * (cuda_msm.DBL_DEPTH * c_w + cuda_msm.ADD_DEPTH)
-        t_ops = nb_w * (w_w - 1) * (cuda_msm.DBL_FMULS * c_w + cuda_msm.ADD_FMULS_DISTINCT) * MULADDS_PER_FMUL / peak_imad * 1e3
-        t_bytes = 4 * 24 * 4 * nb_w * (w_w + 1) / HBM_BYTES_PER_S * 1e3  # w windows in, one point out
+    def b2_bound(_):
+        M = p2.x.shape[-1]
+        n_dbl = doubling_lanes(p2, q2)
+        ops = (M * cuda_msm.ADD_FMULS_DISTINCT + n_dbl * cuda_msm.DBL_FMULS) * MULADDS_PER_FMUL / peak_imad * 1e3
+        nbytes = 12 * 24 * 4 * M / HBM_BYTES_PER_S * 1e3
+        ops23 = M * cuda_msm.ADD_FMULS * MULADDS_PER_FMUL / peak_imad * 1e3
+        return (*roof(ops, nbytes), f"{M} lanes, {n_dbl} doubling, g = {cuda_msm.GROUP}; operations {ops:.4f} ms, "
+                f"bytes {nbytes:.4f} ms; all 23 products in every lane {ops23:.4f} ms")
+
+    kernel_row("add_unified", "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:209",
+               [(lambda: cuda_msm.add_points(p2, q2), lambda: cuda_msm.add_points_ref(p2, q2))], b2_bound,
+               reps=50, queue_ahead=True)
+
+    # B3 at the 2048-cell call's proof MSM (2 MSMs, c = 13, 20 windows),
+    # and at its commitment MSM (1 MSM, c = 8, 32 windows). Bounds: the
+    # card's throughput (operations over every SM's multiply-add rate, or
+    # bytes), and in the note the latency of the dependent chain at one
+    # multiply-add a clock: (w - 1)(3 c + 4) product rounds deep, and
+    # (w - 1)(9 c + 23) products for one thread running them all (the
+    # earlier design)
+    c3 = msm.default_window(cell_inputs[0].x.shape[-1], fixed_base=False)
+    win3 = msm.window_sums(cell_inputs[0], cell_inputs[1], c3)
+    check(c3 == 13 and tuple(win3.x.shape) == (24, 2, 20), f"unexpected proof MSM windows c={c3} {tuple(win3.x.shape)}")
+    c_c = msm.default_window(cell_inputs[2].x.shape[-1], fixed_base=False)
+    win_c = msm.window_sums(cell_inputs[2], cell_inputs[3], c_c)
+    check(c_c == 8 and tuple(win_c.x.shape) == (24, 1, 32), f"unexpected commitment MSM windows c={c_c} {tuple(win_c.x.shape)}")
+
+    def b3_bound(_):
+        nb, w = win3.x.shape[1:]
+        prods = (w - 1) * (cuda_msm.DBL_FMULS * c3 + cuda_msm.ADD_FMULS)
+        rounds = (w - 1) * (cuda_msm.DBL_DEPTH * c3 + cuda_msm.ADD_DEPTH)
+        ops = nb * (w - 1) * (cuda_msm.DBL_FMULS * c3 + cuda_msm.ADD_FMULS_DISTINCT) * MULADDS_PER_FMUL / peak_imad * 1e3
+        nbytes = 4 * 24 * 4 * nb * (w + 1) / HBM_BYTES_PER_S * 1e3  # w windows in, one point out
         t_lat = rounds * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
-        t_lat_old = prods * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
-        b3[label] = (ms, plain, t_ops, t_bytes, t_lat)
-        log(f"horner {label} ({nb_w} MSMs, c = {c_w}, {w_w} windows): {ms:.4f} ms"
-            f" (plain on the card {plain:.1f} ms); throughput bound {max(t_ops, t_bytes):.5f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.5f}, bytes {t_bytes:.6f}); "
-            f"latency bound {t_lat:.4f} ms ({rounds} dependent product rounds); the earlier design's latency bound "
-            f"{t_lat_old:.4f} ms ({prods} products on one thread); {MULADDS_PER_FMUL} multiply-adds a product at "
-            f"{sm_clock_mhz:.0f} MHz [{card}]")
-    t_b3, t_b3_plain, b3_ops, b3_bytes, _ = b3["proof MSM"]
+        t_one = prods * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
+        return (*roof(ops, nbytes), f"{nb} MSMs, c = {c3}, {w} windows, g = {cuda_msm.GROUP}; operations {ops:.5f} ms, "
+                f"bytes {nbytes:.6f} ms; latency bound {t_lat:.4f} ms ({rounds} dependent product rounds); the "
+                f"earlier design's latency bound {t_one:.4f} ms ({prods} products on one thread); "
+                f"{MULADDS_PER_FMUL} multiply-adds a product at {sm_clock_mhz:.0f} MHz; also exact at the "
+                f"commitment MSM, c = {c_c}, {win_c.x.shape[2]} windows")
 
-    # B7 at each field and shape the main path gave it. Bound: latency, the
-    # least chain of dependent products for a^(m-2) at one multiply-add a
-    # clock: a 4-bit fixed window (4 squarings a window after the first, one
-    # multiplication a nonzero window; its table left out), each squaring
-    # at a dedicated squaring's multiply-adds. This design's own chain (left
-    # to right over the bits: (bits - 1) squarings and (ones - 1)
-    # multiplications, each a full product) is printed beside it, as is the
-    # throughput bound (every lane's multiply-adds over every SM).
-    # The row of the kernels line: Fp at one lane (to_affine's root).
-    b7 = {}
-    for key, (spec, a) in inv_inputs.items():
-        if key[0] == "edge":
-            continue
-        e = spec.modulus - 2
-        words = spec.n_limbs // 2
+    kernel_row("horner", "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:307",
+               [(lambda: cuda_msm.horner_windows(win3, c3), lambda: cuda_msm.horner_windows_ref(win3, c3))], b3_bound,
+               checks=[(lambda: cuda_msm.horner_windows(win_c, c_c), lambda: cuda_msm.horner_windows_ref(win_c, c_c))],
+               plain_reps=2)
+
+    # B4 and B5 at the launches of one 16-blob cells call: the inverse 4096
+    # and the forward 8192 of the 16 blobs, the 64 x 128 Toeplitz
+    # transforms, each launch timed alone; each bound is the sum of the
+    # launches' bounds (64 bytes an Fr value, the wrappers' (16, ...) int32
+    # layout; the note gives the bytes at 32, a packed layout)
+    gen = np.random.default_rng(SEED + 2)
+    toeplitz = [int.from_bytes(gen.bytes(32), "little") % R for _ in range(N_CELL_BLOBS * 64 * 128)]
+    ntt_in = [(cuda_fft.bit_reverse(fl.from_canonical(FR, eip4844._bytes_to_limbs(raw16)[0])).contiguous(), True),
+              (torch.cat([poly16, torch.zeros_like(poly16)], dim=-1).contiguous(), False),
+              (torch.from_numpy(FR.encode_host(toeplitz).reshape(16, N_CELL_BLOBS * 64, 128)).to(dev), False)]
+    stage_in = []
+    for x, inverse in ntt_in:
+        log_n = x.shape[-1].bit_length() - 1
+        y = cuda_fft.ntt_tile(x, inverse)
+        stage_in += [(y, st, inverse) for st in range(cuda_fft.tile_stages(log_n), log_n)]
+    del raw16, poly16
+
+    def ntt_bound(launches):
+        """Bound of launches [(B, n, products)], each at its own bound."""
+        terms = [(*fft_times_ms(B, n, prods, peak_imad), fft_times_ms(B, n, prods, peak_imad, FR_BYTES)[1])
+                 for B, n, prods in launches]
+        ops, nbytes, bytes32 = (sum(t[k] for t in terms) for k in range(3))
+        bound32 = sum(max(o, b32) for o, _, b32 in terms)
+        return (sum(max(o, b) for o, b, _ in terms), "operations" if ops >= nbytes else "bytes",
+                f"{len(launches)} launches; operations {ops:.4f} ms, bytes {nbytes:.4f} ms at 64 B/value, "
+                f"{bytes32:.4f} ms at 32 B/value; the bound at 32 B/value {bound32:.4f} ms")
+
+    def b4_products(x, inverse):
+        B, n = x.shape[1:]
+        S = cuda_fft.tile_stages(n.bit_length() - 1)
+        return B, n, B * ((n // 2) * (S - 1) + (n if inverse else 0))  # stage 0's twiddle is one
+
+    kernel_row("ntt_tile", "kzg_tpu_torch/csrc/fft_kernels.cu", "kzg_tpu/ops/pallas_fft.py:179",
+               [(lambda x=x, inv=inv: cuda_fft.ntt_tile(x, inv), lambda x=x, inv=inv: cuda_fft.ntt_tile_ref(x, inv))
+                for x, inv in ntt_in],
+               lambda _: ntt_bound([b4_products(x, inverse) for x, inverse in ntt_in]), queue_ahead=True)
+    kernel_row("ntt_stage", "kzg_tpu_torch/csrc/fft_kernels.cu", "kzg_tpu/ops/pallas_fft.py:255",
+               [(lambda y=y, st=st, inv=inv: cuda_fft.ntt_stage(y, st, inv),
+                 lambda y=y, st=st, inv=inv: cuda_fft.ntt_stage_ref(y, st, inv)) for y, st, inv in stage_in],
+               lambda _: ntt_bound([(*y.shape[1:], y.shape[1] * y.shape[2] // 2) for y, _, _ in stage_in]),
+               queue_ahead=True)
+    del ntt_in, stage_in
+
+    # B6 at the gather probe's shape, beside the library call index_select
+    # (also its plain version), and at the fixed-base MSM's (batch 8: the
+    # 25-word sorted rows B1 reads); launches queued ahead, sharing one
+    # out-of-range flag read after the timing
+    flag = cuda_gather.new_flag(dev)
+    tab6, idx6 = probe["slice"], probe["src_mod"]
+    msm_in = gather_micro.msm_probe(table, BENCH_BATCH)
+    kernel_row("gather_rows", "kzg_tpu_torch/csrc/gather_kernels.cu", "benches/gather_micro.py:182",
+               [(lambda: cuda_gather.gather_rows(tab6, idx6, flag), lambda: cuda_gather.gather_rows_ref(tab6, idx6))],
+               lambda _: (gather_micro.bound_ms(tab6.shape[1], idx6), "bytes",
+                          f"{idx6.numel()} rows of {tab6.shape[1]} words from {tab6.shape[0]}; also exact at the "
+                          f"MSM's {msm_in['idx'].numel()} rows of {msm_in['rows'].shape[1]} words"),
+               checks=[(lambda: cuda_gather.gather_rows(msm_in["rows"], msm_in["idx"], flag),
+                        lambda: cuda_gather.gather_rows_ref(msm_in["rows"], msm_in["idx"]))],
+               plain_reps=20, queue_ahead=True, plain_queue_ahead=True, library=lambda: tab6.index_select(0, idx6))
+    cuda_gather.raise_if_flagged(flag)
+    del msm_in
+
+    # B7 at one Fp lane (to_affine's root), and at the main paths' other
+    # inversions: Fp at 1152 lanes, Fr at 1152 and at the cell verifier's
+    # 64 x 1 (the Fr instance is its own compiled body). Bound: latency,
+    # the least chain of dependent products for a^(m-2) at one multiply-add
+    # a clock: a 4-bit fixed window (4 squarings a window after the first,
+    # one multiplication a nonzero window; its table left out), each
+    # squaring at a dedicated squaring's multiply-adds. This design's own
+    # chain (left to right over the bits: (bits - 1) squarings and (ones -
+    # 1) multiplications, each a full product) and the throughput bound are
+    # in the note.
+    gen = np.random.default_rng(SEED + 13)
+    fp_one = FP.encode([int.from_bytes(gen.bytes(48), "big") % P_MOD], dev)
+    inv_checks = [(spec, spec.encode([int.from_bytes(gen.bytes(48), "big") % spec.modulus for _ in range(n)],
+                                     dev).reshape((spec.n_limbs,) + shape))
+                  for spec, n, shape in ((FP, 1152, (1152,)), (FR, 1152, (1152,)), (FR, 64, (64, 1)))]
+
+    def b7_bound(_):
+        e, words = P_MOD - 2, FP.n_limbs // 2
         mul = words * (4 * words + 1)
         sqr = words * (3 * words + 2)  # s(s + 1)/2 distinct products, lo and hi, then the reduction's 2 s^2 + s
         windows = [(e >> (4 * k)) & 15 for k in range(-(-e.bit_length() // 4))]
         least = 4 * (len(windows) - 1) * sqr + (sum(1 for w in windows[:-1] if w) * mul)
         prods = e.bit_length() + bin(e).count("1") - 2
-        ms = cuda_ms(lambda: fl.inv(spec, a), 20)
-        t_lat = least / (sm_clock_mhz * 1e6) * 1e3
-        t_design = prods * mul / (sm_clock_mhz * 1e6) * 1e3
-        t_ops = a[0].numel() * prods * mul / peak_imad * 1e3
-        b7[(spec.name, a[0].numel())] = (ms, t_lat)
-        log(f"field_inv {spec.name} at {tuple(a.shape)} ({a[0].numel()} lanes): {ms:.4f} ms; latency bound {t_lat:.4f} ms "
-            f"(least chain: {least} dependent multiply-adds, {sqr} a squaring and {mul} a product, at "
-            f"{sm_clock_mhz:.0f} MHz); this design's chain {t_design:.4f} ms ({prods} products); throughput bound "
-            f"{t_ops:.6f} ms [{card}]")
-    check(("Fp", 1) in b7, f"the main path gave field_inv no one-lane Fp input: {sorted(b7)}")
-    t_b7, b7_bound = b7[("Fp", 1)]
-    fp_one = next(a for spec, a in inv_inputs.values() if spec is FP and a[0].numel() == 1)
-    t_b7_plain = cuda_ms(lambda: fl.pow_fixed(FP, fp_one, FP.modulus - 2), 2)
-    log(f"field_inv Fp one lane: {t_b7:.4f} ms (plain pow_fixed on the card {t_b7_plain:.1f} ms, latency bound "
-        f"{b7_bound:.4f} ms) [{card}]")
+        clock = sm_clock_mhz * 1e6
+        return (least / clock * 1e3, "latency", f"least chain: {least} dependent multiply-adds, {sqr} a squaring and "
+                f"{mul} a product, at {sm_clock_mhz:.0f} MHz; this design's chain {prods * mul / clock * 1e3:.4f} ms "
+                f"({prods} products); throughput bound {prods * mul / peak_imad * 1e3:.6f} ms; also exact at "
+                + ", ".join(f"{spec.name} {tuple(a.shape)}" for spec, a in inv_checks))
 
-    # B8 at the 9-blob half convolution (the row of the kernels line).
-    # Bound: operations, w c doublings and w T additions a lane at their
-    # products (9 and 14; the doubling fallback and phi's product of x by
-    # beta left out, as a stored phi table would avoid it)
-    b8_mult, b8_digits, b8_src = b8_args
-    T8, w8, _ = b8_digits.shape
-    b8_lanes = b8_src.numel()
-    b8_prods = w8 * g1fft.TWIDDLE_WINDOW * cuda_msm.DBL_FMULS + w8 * T8 * cuda_msm.ADD_FMULS_DISTINCT
-    t_b8 = cuda_ms(lambda: g1fft.ladder(*b8_args), 10)
-    b8_bound = b8_lanes * b8_prods * MULADDS_PER_FMUL / peak_imad * 1e3
-    log(f"g1_ladder 9-blob half convolution ({b8_lanes} lanes, {w8} windows, {T8} tables, {b8_mult.x.shape[-1]} points): "
-        f"{t_b8:.4f} ms; bound {b8_bound:.4f} ms (operations, {b8_prods} products a lane); "
-        f"{b8_bound / t_b8:.0%} of the bound; plain version on the card {t_b8_plain * 1e3:.1f} ms [{card}]")
-    del b8_args, b8_inputs
+    kernel_row("field_inv", "kzg_tpu_torch/csrc/field_kernels.cu", None,
+               [(lambda: fl.inv(FP, fp_one), lambda: fl.pow_fixed(FP, fp_one, P_MOD - 2))], b7_bound,
+               checks=[(lambda spec=spec, a=a: fl.inv(spec, a), lambda spec=spec, a=a: fl.pow_fixed(spec, a, spec.modulus - 2))
+                       for spec, a in inv_checks], plain_reps=2)
+    del inv_checks
 
-    # B6 at the probe's shape (the row of the kernels line) and at the
-    # MSM's; the plain version is the library call, index_select, timed
-    # twice (as "plain" and as "library"); launches queued ahead, sharing
-    # one out-of-range flag read after the timing
-    flag = cuda_gather.new_flag(dev)
-    b6 = {}
-    for label, tab_b, idx_b in (("probe", probe["slice"], probe["src_mod"]), ("MSM", msm_in["rows"], msm_in["idx"])):
-        ms = cuda_ms(lambda: cuda_gather.gather_rows(tab_b, idx_b, flag), 20, queue_ahead=True)
-        plain = cuda_ms(lambda: cuda_gather.gather_rows_ref(tab_b, idx_b), 20, queue_ahead=True)
-        library = cuda_ms(lambda: tab_b.index_select(0, idx_b), 20, queue_ahead=True)
-        bound = gather_micro.bound_ms(tab_b.shape[1], idx_b)
-        b6[label] = (ms, plain, library, bound)
-        log(f"gather_rows {label} shape ({idx_b.numel()} rows of {tab_b.shape[1]} words from {tab_b.shape[0]}): "
-            f"{ms:.4f} ms (plain {plain:.4f} ms, index_select {library:.4f} ms, bound {bound:.4f} ms, bytes; "
-            f"{bound / ms:.0%} of the bound) [{card}]")
-    cuda_gather.raise_if_flagged(flag)
-    t_b6, t_b6_plain, t_b6_lib, b6_bound = b6["probe"]
+    # B8 at the 9-blob half convolution (EIP-7691's block, as the cells and
+    # recovery calls run it: 1152 points, 65 taps, two GLV tables, lanes
+    # through src; the points are column points, as timing does not depend
+    # on them), and without src on one table: at the last stage of the
+    # column points' G1 FFT (64 x 128: 4096 lanes, 64 digit columns) and
+    # at an inverse's 1/n scale (n = 128; 8192 lanes, one digit column). Bound:
+    # operations, w c doublings and w T additions a lane at their products
+    # (9 and 14; the doubling fallback and phi's product of x by beta left
+    # out, as a stored phi table would avoid it)
+    col_pts = g1.from_affine(g1.map_coords(lambda c: c.flatten(-2).contiguous(), s.x_ext_fft_columns))  # (24, 8192)
+    pts8 = g1.map_coords(lambda c: c[..., : 9 * 128].contiguous(), col_pts)
+    mult8 = g1fft._multiples(pts8, g1fft._TABLE - 1)
+    digits8, src8 = g1fft._half_conv_lanes(128, 9, str(dev))
+    stage_mult = g1fft._multiples(g1.map_coords(lambda c: c[..., :4096].contiguous(), col_pts), g1fft._TABLE - 1)
+    stage_digits = g1fft._stage_digits(7, False, 6, str(dev))
+    scale_mult = g1fft._multiples(col_pts, g1fft._TABLE - 1)
+    scale_digits = g1fft._scale_digits(128, str(dev))
 
-    # ---- 6. multi-device ------------------------------------------------
+    def b8_bound(_):
+        T, w, _ = digits8.shape
+        prods = w * g1fft.TWIDDLE_WINDOW * cuda_msm.DBL_FMULS + w * T * cuda_msm.ADD_FMULS_DISTINCT
+        return (src8.numel() * prods * MULADDS_PER_FMUL / peak_imad * 1e3, "operations",
+                f"{src8.numel()} lanes, {w} windows, {T} tables, {pts8.x.shape[-1]} points; {prods} products a lane; "
+                f"also exact at a G1 FFT stage (digits {tuple(stage_digits.shape)}) and a 1/n scale (digits "
+                f"{tuple(scale_digits.shape)})")
+
+    kernel_row("g1_ladder", "kzg_tpu_torch/csrc/g1fft_kernels.cu", None,
+               [(lambda: g1fft.ladder(mult8, digits8, src8), lambda: g1fft.ladder_ref(mult8, digits8, src8))], b8_bound,
+               checks=[(lambda: g1fft.ladder(stage_mult, stage_digits), lambda: g1fft.ladder_ref(stage_mult, stage_digits)),
+                       (lambda: g1fft.ladder(scale_mult, scale_digits), lambda: g1fft.ladder_ref(scale_mult, scale_digits))],
+               reps=10, plain_reps=1)
+    del mult8, stage_mult, scale_mult
+
+    # ---- 5. multi-device ---------------------------------------------------
     # Ranks of one gloo process group in processes of their own (spawned by
     # kzg_tpu_torch.parallel.dryrun.launch), every rank computing on this
     # card: NCCL refuses two ranks on one card; with a card a rank, the same
@@ -1571,8 +1150,7 @@ def main() -> int:
         log(f"{label}: {n_procs} ranks in {secs:.1f} s with start-up (gloo)")
         for r, res in enumerate(ranks):
             log(f"  rank {r}: " + "; ".join(f"{k} {v:.3f} s" for k, v in res["walls"].items()))
-            log(f"  rank {r}: launches {res['launches']}; peak device memory {res['peak_bytes'] / 2**30:.2f} GiB; "
-                f"kernels exact on their recorded shapes {res['recorded']} [{card}]")
+            log(f"  rank {r}: launches {res['launches']}; peak device memory {res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
             for name, k in res["launches"].items():
                 main_launches[name] += k
         return ranks
@@ -1584,10 +1162,14 @@ def main() -> int:
     log(f"mesh entry points: {N_BLOBS} commitments byte-equal to the single-process ones; verification True, "
         f"False with two proofs swapped; {N_BLOBS - 1} blobs padded as without the mesh; a non-canonical blob "
         f"raises ValueError on both ranks")
-    sc_m, pts_m, x_m = mesh_inputs(s, dev)
-    want = {"fixed": g1.xyzz_to_ints(msm.msm_fixed(table, sc_m)), "var": g1.xyzz_to_ints(msm.msm(pts_m, sc_m[:, 0])),
-            "fft": fl.limbs_to_ints(fft_ops.fft(x_m)), "ifft": fl.limbs_to_ints(fft_ops.ifft(x_m))}
+    # the ranks' results are held against the plain versions on a CPU copy
+    sc_m, pts_m, x_m = map(to_cpu, mesh_inputs(s, dev))
+    want, t_want = timed(lambda: {
+        "fixed": g1.xyzz_to_ints(msm.msm_fixed(cpu_s.lagrange_table, sc_m)),
+        "var": g1.xyzz_to_ints(msm.msm(pts_m, sc_m[:, 0])),
+        "fft": fl.limbs_to_ints(fft_ops.fft(x_m)), "ifft": fl.limbs_to_ints(fft_ops.ifft(x_m))})
     want = json.loads(json.dumps(want))  # as the ranks' JSON gives them: points as [x, y] lists
+    log(f"the mesh programs' single-process results on the CPU copy: {t_want:.1f} s on the host")
     ranks4 = mesh_launch("mesh programs (global_mesh 2 x 2, 4 ranks)", mesh_programs, 4, ())
     for r, res in enumerate(ranks4):
         for key, value in want.items():
@@ -1596,51 +1178,10 @@ def main() -> int:
             check(res["launches"][name] > 0, f"rank {r} of the mesh programs launched no {name}")
     log(f"mesh programs: the dry run's programs at its small shapes; msm_fixed_sharded ({MESH_ROWS} x 4096, c = 13) "
         f"and msm_sharded (4096 setup points) affine-equal to msm_fixed and msm; fft_sharded and ifft_sharded at "
-        f"8192 limb-equal to fft and ifft, and they round-trip")
+        f"8192 limb-equal to fft and ifft (all four on the CPU copy), and they round-trip")
 
-    rows_out = []
-    for name, ms, plain_ms, bound, by, source, replaces in (
-        ("seg_scan_phase1", t_b1, t_plain_b1 * 1e3, max(b1_ops / peak_imad, b1_bytes / HBM_BYTES_PER_S) * 1e3,
-         "operations" if b1_ops / peak_imad >= b1_bytes / HBM_BYTES_PER_S else "bytes",
-         "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:94"),
-        ("add_unified", t_b2, t_b2_plain, max(b2_ops_ms, b2_bytes_ms), "operations" if b2_ops_ms >= b2_bytes_ms else "bytes",
-         "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:209"),
-        ("horner", t_b3, t_b3_plain, max(b3_ops, b3_bytes), "operations" if b3_ops >= b3_bytes else "bytes",
-         "kzg_tpu_torch/csrc/msm_kernels.cu", "kzg_tpu/ops/pallas_msm.py:307"),
-    ) + tuple(
-        (name, r["ms"], r["plain"], r["bound"], "operations" if r["ops"] >= r["bytes"] else "bytes",
-         "kzg_tpu_torch/csrc/fft_kernels.cu", replaces)
-        for (name, r), replaces in zip(fft_rows.items(), ("kzg_tpu/ops/pallas_fft.py:179", "kzg_tpu/ops/pallas_fft.py:255"))
-    ) + (
-        ("gather_rows", t_b6, t_b6_plain, b6_bound, "bytes", "kzg_tpu_torch/csrc/gather_kernels.cu",
-         "benches/gather_micro.py:182"),
-        ("field_inv", t_b7, t_b7_plain, b7_bound, "latency", "kzg_tpu_torch/csrc/field_kernels.cu", None),
-        ("g1_ladder", t_b8, t_b8_plain * 1e3, b8_bound, "operations", "kzg_tpu_torch/csrc/g1fft_kernels.cu", None),
-    ):
-        rows_out.append({
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": main_launches[name],
-            "max_abs_err": max_err[name],
-            "ms": round(ms, 4),
-            "plain_ms": round(plain_ms, 4),
-            "bound_ms": round(bound, 4),
-            "bound_by": by,
-            "library_ms": round(t_b6_lib, 4) if name == "gather_rows" else None,
-        })
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound:.4f} ms, {by}) [{card}]")
-    for name, r in fft_rows.items():
-        log(f"{name} bound terms summed over the call's launches: operations {r['ops']:.4f} ms, "
-            f"bytes {r['bytes']:.4f} ms at 64 B/value, {r['bytes32']:.4f} ms at 32 B/value; "
-            f"the kernel at {r['bound'] / r['ms']:.0%} of its bound, "
-            f"{r['bound32'] / r['ms']:.0%} of the bound at 32 B/value [{card}]")
-    log(f"B1 timed at K={K64} m={m64} ({E64} elements), {cuda_msm.SCAN_GROUP} warps a block; "
-        f"B2 at {p_main.x.shape[-1]} lanes, g = {cuda_msm.GROUP}; "
-        f"B3 at the 2048-cell proof MSM's launch, g = {cuda_msm.GROUP}; "
-        f"B4 and B5 as the sum of one {N_CELL_BLOBS}-blob cells-and-proofs call's launches; B6 at the gather probe's shape; "
-        f"B7 at one Fp lane; B8 at the 9-blob half convolution")
+    for row in rows_out:
+        row["launches"] = main_launches[row["name"]]
     for label, secs in verify_walls.items():
         log(f"verify {label}: {secs:.3f} s, peak device memory {verify_peaks[label] / 2**30:.2f} GiB; "
             f"launches {verify_launches[label]} [{card}]")

@@ -1,7 +1,8 @@
 """What the port's bench scripts share: the card line, seeded canonical
-scalars made with numpy, and the timers (CUDA events for device time; the
-host clock between two synchronizes for wall time). The benches load the
-mainnet setup with `api.load_trusted_setup_file()`, which finds it."""
+scalars and blobs made with numpy, and the timers (CUDA events for device
+time; the host clock between two synchronizes for wall time). The benches
+load the mainnet setup with `api.load_trusted_setup_file()`, which finds
+it."""
 
 import subprocess
 import sys
@@ -50,6 +51,12 @@ def random_scalars(rng: np.random.Generator, count: int) -> np.ndarray:
         limbs[todo[lt]] = draw[lt]
         todo = todo[~lt]
     return np.ascontiguousarray(limbs.T.astype(np.int32))
+
+
+def random_blob(rng: np.random.Generator) -> bytes:
+    """A blob of 4096 canonical field elements, big-endian."""
+    limbs = random_scalars(rng, 4096).astype(np.uint16)  # (16, 4096), limb 0 lowest
+    return limbs.T[:, ::-1].astype(">u2").tobytes()
 
 
 def device_ms(fn, reps: int, queue_ahead: bool = False) -> float:

@@ -3,15 +3,14 @@ ops/cuda_gather.py, ops/field.py inv, ops/g1fft.py ladder) share: their input ch
 launch check, the current stream and the kernel library.
 
 The launch counts live in the package's tracing registry (tracing.py), as
-counters `launch.<kernel>`; `counted`, `launches`, `reset_launches` and
-`WRAPPERS` (kernel name -> wrapper) are its names for them here.
+counters `launch.<kernel>`; `counted`, `launches` and `reset_launches` are
+its names for them here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..tracing import LAUNCHES as WRAPPERS  # noqa: F401  (read by chip_smoke.py)
 from ..tracing import counted, launches, reset_launches  # noqa: F401
 
 

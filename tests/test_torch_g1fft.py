@@ -89,10 +89,15 @@ def test_digit_tables_match_jax():
 
 
 
-# (tables, digit columns D, lanes through src, lanes N): one table or a GLV
-# pair, one digit column or several, src given or not
+# (tables, digit columns D, lanes through src, lanes N[, windows, points]):
+# one table or a GLV pair, one digit column or several, src given or not
 LADDER_CASES = [(1, 1, False, 5), (1, 3, True, 7), (2, 1, True, 6), (2, 4, False, 8)]
-LADDER_WIDE = (2, 5, True, 77)  # lanes past a 32-lane block, the last block ragged
+LADDER_WIDE = [
+    (2, 5, True, 77),  # lanes past a 32-lane block, the last block ragged
+    (2, 65, True, 9 * 128 * 65, 26, 9 * 128),  # the 9-blob half convolution: 65 taps of 1152 points
+    (1, 64, False, 64 * 64, 52),  # the last stage of a G1 FFT of the 64 x 128 column points
+    (1, 1, False, 64 * 128, 52),  # its inverse's 1/n scale: one digit column for every lane
+]
 
 
 @pytest.fixture
@@ -102,12 +107,12 @@ def ladder_device(request):
     return torch.device(request.param)
 
 
-def _ladder_inputs(tables, cols, with_src, lanes, windows=3):
+def _ladder_inputs(tables, cols, with_src, lanes, windows=3, points=None):
     """Points (an identity among them), signed digits (tables, windows,
     cols) in [-16, 16] with zeros, negatives and both extremes, and the
-    lanes' points."""
+    lanes' points (`points` of them when given, through src)."""
     rng = np.random.default_rng(7 + 100 * tables + 10 * cols + lanes)
-    n_pts = max(2, lanes - 2) if with_src else lanes
+    n_pts = points or (max(2, lanes - 2) if with_src else lanes)
     pts = [G1.mul_scalar(G1_GENERATOR, int(rng.integers(1, 1 << 40))) for _ in range(n_pts)]
     pts[1] = None
     digits = rng.integers(-16, 17, (tables, windows, cols))
@@ -120,40 +125,41 @@ def _ladder_inputs(tables, cols, with_src, lanes, windows=3):
 def _plain_loop(p, digits, src):
     """The ladder as it ran before B8: each lane's point gathered first,
     then its own multiples, the phi table of those and the digit columns
-    tiled over the lanes, into _ladder."""
+    tiled over the lanes, into _ladder, on p's device."""
     lanes = p.x.shape[-1] if src is None else len(src)
+    dev = p.x.device
     if src is not None:
-        p = tg.map_coords(lambda c: c[..., torch.from_numpy(src)], p)
+        p = tg.map_coords(lambda c: c[..., torch.from_numpy(src).to(dev)], p)
     mult = tgf._multiples(p, 16)
     tables = [mult]
     if digits.shape[0] == 2:
-        beta = torch.from_numpy(FP.const(tgf.glv_beta())).reshape(FP.n_limbs, 1, 1)
+        beta = torch.from_numpy(FP.const(tgf.glv_beta())).reshape(FP.n_limbs, 1, 1).to(dev)
         tables.append(tg.G1XYZZ(fl.mont_mul(FP, mult.x, beta), mult.y, mult.zz, mult.zzz))
-    cols = torch.from_numpy(digits[:, :, np.arange(lanes) % digits.shape[2]].astype(np.int64))
+    cols = torch.from_numpy(digits[:, :, np.arange(lanes) % digits.shape[2]].astype(np.int64)).to(dev)
     return tgf._ladder(tables, [(d.abs(), d < 0) for d in cols])
 
 
 @pytest.mark.parametrize(
     "case, ladder_device",
     [(c, "cpu") for c in LADDER_CASES]
-    + [pytest.param(c, "cuda", marks=pytest.mark.gpu) for c in LADDER_CASES + [LADDER_WIDE]],
+    + [pytest.param(c, "cuda", marks=pytest.mark.gpu) for c in LADDER_CASES + LADDER_WIDE],
     indirect=["ladder_device"],
 )
 def test_ladder_matches_the_plain_loop(case, ladder_device):
     """ladder (B8 on a card, one launch; its plain version on the CPU, no
-    launch) limb for limb against the loop it replaced, and each lane's
-    result against the native core's scalar multiply by
-    sum_j d_j 32^j + lambda sum_j d'_j 32^j."""
+    launch) limb for limb against the loop it replaced (on the same
+    device), and each lane's result against the native core's scalar
+    multiply by sum_j d_j 32^j + lambda sum_j d'_j 32^j."""
     pts, digits, src = _ladder_inputs(*case)
-    p = tg.from_affine(tg.affine_from_ints(pts, "cpu"))
-    want = _plain_loop(p, digits, src)
     dev = ladder_device
-    mult = tgf._multiples(tg.map_coords(lambda c: c.to(dev), p), 16)
+    p = tg.from_affine(tg.affine_from_ints(pts, dev))
+    want = _plain_loop(p, digits, src)
+    mult = tgf._multiples(p, 16)
     launch.reset_launches()
     got = tgf.ladder(mult, torch.from_numpy(digits).to(dev), None if src is None else torch.from_numpy(src.astype(np.int32)).to(dev))
     assert launch.launches()["g1_ladder"] == (dev.type == "cuda")
     for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
+        assert torch.equal(a, b)
     lanes = len(pts) if src is None else len(src)
     scalars = []
     for lane in range(lanes):

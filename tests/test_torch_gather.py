@@ -14,7 +14,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from kzg_tpu_torch import bench, native
-from kzg_tpu_torch.benches import common, msm_stages, run_benches
+from kzg_tpu_torch.benches import common, msm_stages
 from kzg_tpu_torch.constants import G1_GENERATOR_X, G1_GENERATOR_Y, R_MOD
 from kzg_tpu_torch.ops import cuda_gather, g1, launch, msm
 from kzg_tpu_torch.ops.field import limbs_to_ints
@@ -150,6 +150,6 @@ def test_bench_inputs_are_canonical():
     rng = np.random.default_rng(5)
     vals = limbs_to_ints(common.random_scalars(rng, 2000))
     assert all(0 <= v < R_MOD for v in vals) and max(vals) > R_MOD * 9 // 10
-    blob = run_benches.random_blob(rng)
+    blob = common.random_blob(rng)
     assert len(blob) == 131072
     assert all(int.from_bytes(blob[32 * i : 32 * i + 32], "big") < R_MOD for i in range(4096))

@@ -371,11 +371,13 @@ def _edge_pairs(M, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 7, 33, 100, 1000])
+@pytest.mark.parametrize("M", [1, 7, 33, 100, 240, 1000, 2048, 32768, 133120])
 def test_add_points_kernel_edge_cases(cuda_device, M):
     """B2 at lane counts that are not multiples of the block's 32 points or
-    of the group, with a block where one lane doubles and one where every
-    lane does, identity operands on either side and P == -Q."""
+    of the group, at the fixed-base MSM's 32,768 chunk sums of 64 blobs and
+    at the 133,120 lanes of 16 blobs' FK20 half convolutions, with a block
+    where one lane doubles and one where every lane does, identity operands
+    on either side and P == -Q."""
     p, q = _edge_pairs(M, cuda_device)
     got = cuda_msm.add_points(p, q)
     ref = cuda_msm.add_points_ref(*(g1.map_coords(lambda c: c.cpu(), x) for x in (p, q)))
@@ -424,22 +426,39 @@ def _scan_case(K, m, seed, dbl=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K, m, dbl", [(6, 300, None), (7, 1, None), (1, 77, None), (2, 33, None),
-                                       (6, 96, [37]), (6, 96, list(range(32, 64)))])
+                                       (6, 96, [37]), (6, 96, list(range(32, 64))),
+                                       (160, 32768, None), (128, 32768, None)])
 def test_seg_scan_kernel_edge_cases(cuda_device, K, m, dbl):
     """B1 at m not a multiple of its 32-lane blocks, one lane, one step;
     one lane alone of its block with P == Q, a block where every lane has
     it; identity rows, an identity sum after a restart, P == -Q (the
-    negated rows)."""
-    rows, idx, first = _scan_case(K, m, K * 1000 + m, dbl)
-    got = cuda_msm.seg_scan_phase1_mem(rows.to(cuda_device), idx.to(cuda_device), first.to(cuda_device))
-    ref = cuda_msm.seg_scan_phase1_mem(rows, idx, first)
+    negated rows); and at the (K, m) of the 64-blob commitment's scan (K
+    = 160) and of 16 blobs' FK20 column MSM (K = 128), on this file's
+    33-row table, not on the mainnet tables (chip_smoke.py's B1 row runs
+    both on those). The plain version runs on the card."""
+    rows, idx, first = (t.to(cuda_device) for t in _scan_case(K, m, K * 1000 + m, dbl))
+    got = cuda_msm.seg_scan_phase1_mem(rows, idx, first)
+    ref = cuda_msm.seg_scan_phase1_mem_ref(rows, idx, first)
     for a, b in zip(got, ref):
-        assert torch.equal(a.cpu(), b)
+        assert torch.equal(a, b)
+
+
+# (B, n, inverse): odd batches, and every transform the recovery, multiproof,
+# das_extension and legacy FK20 calls give B4 and B5: one blob's at n = 4 to
+# 8192, the vanishing polynomial's trees of one blob and of 9 (batch x n =
+# 32 x 4 ... 1 x 128, times 9), the 9 blobs' division, their 64 x 128 FK20
+# transforms (a batch of 576), the legacy chunk files' 64 x 128 and 16 x 512
+NTT_CASES = sorted(
+    {(5, 128, False), (3, 4096, True), (2, 8192, False), (7, 2, False), (5, 512, True), (3, 1024, False),
+     (5, 2048, True), (5, 2048, False), (3, 8192, True), (9, 8192, False), (9, 8192, True), (64, 128, False),
+     (576, 128, False), (16, 512, False)}
+    | {(1, 1 << k, inverse) for k in range(2, 14) for inverse in (False, True)}
+    | {(b * (32 >> lv), 4 << lv, inverse) for b in (1, 9) for lv in range(6) for inverse in (False, True)}
+)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, n, inverse", [(5, 128, False), (3, 4096, True), (2, 8192, False), (7, 2, False),
-                                           (5, 512, True), (3, 1024, False), (5, 2048, True)])
+@pytest.mark.parametrize("B, n, inverse", NTT_CASES)
 def test_ntt_kernels_match_plain(cuda_device, B, n, inverse):
     x = _fr_values(B, n, seed=n)
     got = cuda_fft.ntt_tile(x.to(cuda_device), inverse)
@@ -505,11 +524,12 @@ def test_horner_kernel_matches_plain(cuda_device, nb, w, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nb, w, c", [(1, 20, 13), (2, 20, 13), (1, 32, 8), (1024, 4, 2), (3, 1, 13), (5, 6, 1)])
+@pytest.mark.parametrize("nb, w, c", [(1, 20, 13), (2, 20, 13), (1, 32, 8), (1024, 4, 2), (3, 1, 13), (5, 6, 1),
+                                     (1, 1, 13), (2, 20, 1), (1024, 20, 13)])
 def test_horner_kernel_edge_shapes(cuda_device, nb, w, c):
     """B3 at one, two and 1024 MSMs, one window, c = 1 and the verify
     paths' shapes (the proof MSM: 2 MSMs, c = 13, 20 windows; the
-    commitment MSM: 1, c = 8, 32 windows)."""
+    commitment MSM: 1, c = 8, 32 windows), and 1024 MSMs of 20 windows."""
     win = g1.map_coords(lambda t: t[:, :nb].contiguous(), _horner_windows(cuda_device, max(nb, 4), w, c))
     got = cuda_msm.horner_windows(win, c)
     ref = cuda_msm.horner_windows_ref(g1.map_coords(lambda t: t.cpu(), win), c)
@@ -533,11 +553,14 @@ def test_variable_base_msm_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width, rows, count", [(24, 4096, 655360), (25, 1000, 777), (24, 300, 1)])
+@pytest.mark.parametrize("width, rows, count", [(24, 4096, 655360), (25, 1000, 777), (24, 300, 1), (25, 1000, 1),
+                                                (25, 2 * 20 * 4096, 655360)])
 def test_gather_kernel_matches_plain(cuda_device, width, rows, count):
     """B6 word for word against index_select, with the first and last rows
     and repeated indices, on an aligned table and on one that starts one
-    word into its storage (the kernel's unvectorised path)."""
+    word into its storage (the kernel's unvectorised path); at the gather
+    probe's shape and at the fixed-base MSM's (the 25-word rows of the
+    mainnet table and their negations, a batch of 8)."""
     rng = np.random.default_rng(width + count)
     tab = torch.from_numpy(rng.integers(-(2**31), 2**31, (rows, width), dtype=np.int64).astype(np.int32))
     idx = np.concatenate([[0, rows - 1, rows - 1, 0], rng.integers(0, rows, count)])[:count].astype(np.int32)
@@ -556,8 +579,9 @@ def test_gather_rows_launches_or_raises_on_a_card(cuda_device):
     out = cuda_gather.gather_rows(tab, torch.tensor([7, 0], dtype=torch.int32, device=cuda_device))
     assert out.cpu().tolist() == [list(range(35, 40)), list(range(5))]
     assert launch.launches()["gather_rows"] == 1
-    with pytest.raises(IndexError, match="out of range"):
-        cuda_gather.gather_rows(tab, torch.tensor([8], dtype=torch.int32, device=cuda_device))
+    for bad in (8, -1):
+        with pytest.raises(IndexError, match="out of range"):
+            cuda_gather.gather_rows(tab, torch.tensor([3, bad], dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError, match="on cpu"):
         cuda_gather.gather_rows(tab, torch.tensor([1], dtype=torch.int32))
 
@@ -574,12 +598,15 @@ def _field_values(spec, n, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 9, 128, 1152, 4097])
+@pytest.mark.parametrize("shape", [(1,), (9,), (64, 1), (128,), (1152,), (4097,)], ids=lambda t: "x".join(map(str, t)))
 @pytest.mark.parametrize("spec", [FP, FR], ids=["Fp", "Fr"])
-def test_field_inv_kernel_matches_plain(cuda_device, spec, n):
-    """B7 limb for limb against pow_fixed on the card, 0 -> 0."""
+def test_field_inv_kernel_matches_plain(cuda_device, spec, shape):
+    """B7 limb for limb against pow_fixed on the card, 0 -> 0; at the
+    main paths' inversions (to_affine's one lane and 1152 lanes, the cell
+    verifier's 64 x 1) among others."""
+    n = int(np.prod(shape))
     vals, x = _field_values(spec, n, n)
-    x = x.to(cuda_device)
+    x = x.to(cuda_device).reshape((spec.n_limbs,) + shape)
     got = fl.inv(spec, x)
     assert torch.equal(got.cpu(), fl.pow_fixed(spec, x, spec.modulus - 2).cpu())
     m = spec.modulus

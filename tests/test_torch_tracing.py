@@ -111,7 +111,8 @@ def test_spans_are_profiler_host_events_on_its_clock(traced):
 
 
 def test_launch_registry_reads_as_before():
-    assert launch.counted is tracing.counted and launch.WRAPPERS is tracing.LAUNCHES
+    assert launch.counted is tracing.counted and launch.launches is tracing.launches
+    assert launch.reset_launches is tracing.reset_launches
     tracing.count("field.inversions")
     launch.reset_launches()
     assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
