@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero, and the result line is not printed;
 each phase's comments in main() say what it checks and why):
   1. card and builds: the card's name, power limit and versions; the CUDA
-     kernels (one nvcc a source; B1-B3, B7 and B8 must not spill, B7 has
+     kernels (one nvcc a source; B1-B3, B7-B9 must not spill, B7 has
      no stack), the native host core and the C ABI, built together;
   2. the main paths at full protocol width through the public API, with
      the kernels' launch counts read around each call: EIP-4844 commit
@@ -57,7 +57,7 @@ BENCH_BATCH, BENCH_ITERS = 8, 3  # the headline bench's batch, cut to 3 iteratio
 FR_TENSOR_BYTES = 16 * 4  # one Fr value in the (16, ...) int32 limb layout
 FR_BYTES = 32  # one Fr value packed: what a 32-bit-limb layout would move
 NO_SPILL = ("seg_scan_phase1_kernel", "add_unified_kernel", "horner_kernel", "field_inv_kernel",
-            "g1_ladder_kernel")  # B1-B3, B7, B8: ptxas must report no spills
+            "g1_ladder_kernel", "integrate_kernel")  # B1-B3, B7-B9: ptxas must report no spills
 NO_STACK = ("field_inv_kernel",)  # B7: ptxas must report no stack frame
 
 
@@ -129,7 +129,7 @@ def build_all():
             log("  ptxas:", line.strip())
         if entry and "spill" in line:
             spills.setdefault(entry, []).append(line.strip())
-    # B1, B2, B3, B7 (each of its instances) and B8 keep every value in
+    # B1, B2, B3, B7 (each of its instances), B8 and B9 keep every value in
     # registers or shared memory
     for k in NO_SPILL:
         check(k in spills, f"ptxas reported no spill line for {k}")
@@ -889,12 +889,13 @@ def main() -> int:
     rows_out = []
 
     def kernel_row(name, source, replaces, launches, bound, checks=(), reps=20, plain_reps=3,
-                   queue_ahead=False, plain_queue_ahead=False, library=None):
+                   queue_ahead=False, plain_queue_ahead=False, library=None, canon=lambda out: out):
         """`launches`: the (kernel, plain) calls the row times, each timed
         alone and the times summed; `checks`: (kernel, plain) calls at more
         shapes, not timed. bound(the first launch's output) -> (bound ms,
         what bounds it, a note for the log). Tolerance: exact, as both
-        sides reduce every limb fully. With `queue_ahead`
+        sides reduce every limb fully, on the outputs as `canon` gives
+        them (affine points where the kernel adds in another order). With `queue_ahead`
         (`plain_queue_ahead`) the kernel's (the plain version's) launches
         are queued ahead of the timed window (kernels shorter than their
         wrapper's host overhead)."""
@@ -903,11 +904,12 @@ def main() -> int:
             got = kernel()
             if k == 0:
                 bound_ms, by, note = bound(got)
-            e = max_abs_err(got, plain())
+            e = max_abs_err(canon(got), canon(plain()))
             check(e == 0, f"{name}: kernel and plain version differ at input {k} (max abs limb error {e})")
             err = max(err, e)
             del got
-        ms = sum(cuda_ms(kernel, reps, queue_ahead) for kernel, _ in launches)
+        each = [cuda_ms(kernel, reps, queue_ahead) for kernel, _ in launches]
+        ms = sum(each)
         plain_ms = sum(cuda_ms(plain, plain_reps, plain_queue_ahead) for _, plain in launches)
         library_ms = None if library is None else cuda_ms(library, reps, queue_ahead)
         rows_out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -916,7 +918,8 @@ def main() -> int:
                          "bound_ms": round(bound_ms, 4), "bound_by": by,
                          "library_ms": None if library_ms is None else round(library_ms, 4)})
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-        log(f"{name}: exact at {len(launches) + len(checks)} inputs; {ms:.4f} ms (plain {plain_ms:.4f} ms{lib}); "
+        split = "" if len(each) == 1 else " (" + " + ".join(f"{t:.4f}" for t in each) + ")"
+        log(f"{name}: exact at {len(launches) + len(checks)} inputs; {ms:.4f} ms{split} (plain {plain_ms:.4f} ms{lib}); "
             f"bound {bound_ms:.4f} ms, {by}, {bound_ms / ms:.0%} of it; {note} [{card}]")
 
     # B1 at the 64-blob scan, and at the FK20 column MSM of the 16 cell
@@ -1002,6 +1005,59 @@ def main() -> int:
                [(lambda: cuda_msm.horner_windows(win3, c3), lambda: cuda_msm.horner_windows_ref(win3, c3))], b3_bound,
                checks=[(lambda: cuda_msm.horner_windows(win_c, c_c), lambda: cuda_msm.horner_windows_ref(win_c, c_c))],
                plain_reps=2)
+
+    # B9 at the commitment MSM of 6 blobs (6 rows of 4097 buckets, c = 13,
+    # the Lagrange table) and at the FK20 column MSM of 18 blobs (2304 rows
+    # of 129, c = 8, the column tables), each on the bucket sums the MSM
+    # gives it, held against the plain version as affine points (its
+    # additions run in another order, so its XYZZ coordinates differ); also
+    # exact at the 9-blob FK20 column MSM (1152 rows) and at the verify
+    # lincomb's 2 x 37 (batch, window) rows of 65. Bound: operations, 2 (B
+    # - 1) additions a row at the 14 products of an addition without its
+    # doubling, or the least chain of any order of those additions, a
+    # suffix scan and a tree sum over the buckets (2 log2 B additions of 4
+    # product rounds, each round a product's 588 dependent multiply-adds at
+    # the clock); this design's own chain is in the note
+    def fixed_buckets(tab, scalars):
+        rows_p, lay, n_keys, nb, _ = msm._fixed_inputs(tab, scalars)
+        return g1.map_coords(lambda c: c.reshape(24, nb, -1), msm._bucket_sums_mem(rows_p, lay, n_keys))
+
+    raw18 = torch.from_numpy(np.frombuffer(b"".join(blobs[:18]), np.uint8).reshape(18, 4096, 32).copy()).to(dev)
+    buckets_commit = fixed_buckets(table, eip4844._bytes_to_limbs(raw18[:6])[0])
+    poly18 = eip7594._cells_body(raw18)[1]
+    buckets_fk20 = fixed_buckets(col_tables, eip7594.column_scalars(poly18, 64))
+    buckets_fk20_9 = fixed_buckets(col_tables, eip7594.column_scalars(poly18[:, :9], 64))
+    win_b = msm._var_inputs(cell_inputs[0], cell_inputs[1], 7)
+    buckets_var = g1.map_coords(lambda c: c.reshape(24, win_b[3] * win_b[4], -1),
+                                msm._bucket_sums_mem(win_b[0], win_b[1], win_b[2]))
+    check(tuple(buckets_commit.x.shape) == (24, 6, 4097) and tuple(buckets_fk20.x.shape) == (24, 2304, 129)
+          and tuple(buckets_var.x.shape[1:]) == (74, 65),
+          f"unexpected bucket shapes {tuple(buckets_commit.x.shape)} {tuple(buckets_fk20.x.shape)} "
+          f"{tuple(buckets_var.x.shape)}")
+    del raw18, poly18
+
+    def b9_bound(_):
+        ops = least = 0.0
+        chains = []
+        for bk in (buckets_commit, buckets_fk20):
+            rows, B = bk.x.shape[1:]
+            ops += rows * 2 * (B - 1) * cuda_msm.ADD_FMULS_DISTINCT * MULADDS_PER_FMUL / peak_imad * 1e3
+            least += 2 * (B - 1).bit_length() * cuda_msm.ADD_DEPTH * MULADDS_PER_FMUL / (sm_clock_mhz * 1e6) * 1e3
+            plan = cuda_msm.integrate_plan(rows, B, n_sm)
+            chains.append(f"{rows} x {B}: grid {plan}, {sum(cuda_msm.integrate_rounds(*plan))} rounds")
+        return (max(ops, least), "operations" if ops >= least else "latency",
+                f"operations {ops:.4f} ms, least chain {least:.4f} ms; this design's chains: " + "; ".join(chains)
+                + "; also exact at the 9-blob FK20 column MSM (1152 x 129) and the verify lincomb (74 x 65)")
+
+    integ_canon = lambda p: g1.to_affine(p)
+    kernel_row("integrate", "kzg_tpu_torch/csrc/msm_kernels.cu", None,
+               [(lambda bk=bk: cuda_msm.integrate_buckets(bk),
+                 lambda bk=bk: g1.map_coords(lambda c: c[..., 0], cuda_msm.integrate_buckets_ref(bk)))
+                for bk in (buckets_commit, buckets_fk20)], b9_bound,
+               checks=[(lambda bk=bk: cuda_msm.integrate_buckets(bk),
+                        lambda bk=bk: g1.map_coords(lambda c: c[..., 0], cuda_msm.integrate_buckets_ref(bk)))
+                       for bk in (buckets_fk20_9, buckets_var)], plain_reps=1, canon=integ_canon)
+    del buckets_commit, buckets_fk20, buckets_fk20_9, buckets_var
 
     # B4 and B5 at the launches of one 16-blob cells call: the inverse 4096
     # and the forward 8192 of the 16 blobs, the 64 x 128 Toeplitz

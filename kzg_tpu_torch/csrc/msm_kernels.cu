@@ -1,4 +1,4 @@
-// The three kernels of the MSMs, for sm_90a, each with a plain C launcher
+// The four kernels of the MSMs, for sm_90a, each with a plain C launcher
 // (bound with ctypes from kzg_tpu_torch/kernels.py; wrappers in
 // kzg_tpu_torch/ops/cuda_msm.py).
 //
@@ -65,8 +65,40 @@
 //     (8, 128) lane tile, VMEM scratch and grid over the windows are not
 //     carried over.)
 //
-// All three reduce every field value fully to [0, p), so their outputs
-// equal the plain PyTorch versions limb for limb.
+// B9  integrate: replaces no TPU kernel (the JAX package integrates with
+//     jnp adds; the plain version, ops/cuda_msm.py integrate_buckets_ref,
+//     is the square split in some 3,300-6,500 PyTorch launches). Bucket
+//     integration of an MSM, sum_{b=1}^{B-1} b S_b for every row (every
+//     (batch, window) pair) of XYZZ bucket sums, in one launch.
+//     A row's B buckets are spread over T units, unit t owning the buckets
+//     b = j T + t (so the units of a row read neighbouring words); each
+//     runs the two running sums from the top step down, acc += run then
+//     run += S_b, which leaves W_t = sum_j j S_{jT+t} and R_t = sum_j
+//     S_{jT+t}, and the row's sum is T sum_t W_t + sum_t t R_t. The two
+//     additions of a step are independent, so each unit takes two of the
+//     block's 32 lanes of B2's cooperative addition (g1.cuh): a step is one
+//     addition, 4 product rounds deep. The units then combine in log T
+//     rounds of additions without doublings: an all-reduce of the W (each
+//     unit holds Omega = sum W) beside a suffix scan of the R (Suf_t), then
+//     Z_t = Omega + Suf_t (Z_0 = Omega) and a tree sum of the Z:
+//     sum_t Z_t = T Omega + sum_t t R_t. A row spread over nbk > 1
+//     blocks (16 units each) leaves each block's (L, omega, rho) in
+//     scratch; the row's last block to finish (an atomic count a row, set
+//     back to 0 by that block) adds sum L + 16 ((nbk - 1) Omega +
+//     sum_beta beta rho_beta), the second term by the same all-reduce,
+//     suffix scan and tree sum, then 4 doublings.
+//     Bound on this card: a row of B buckets takes 2 (B - 1) complete
+//     additions, 14 products each (9 more where P == Q), as many as the
+//     plain square split; the bytes (384 a bucket) take a tenth of that
+//     time at 3.35 TB/s. At a few rows the chain (about 4 J + 8 log2 T
+//     rounds) bounds it. The wrapper picks T (units of a row: cols in a
+//     block, times nbk blocks) from the shape, the fewest rounds on the
+//     chain against the rounds the card's SMs must run, with no knob.
+//
+// All four reduce every field value fully to [0, p), so their outputs
+// equal the plain PyTorch versions limb for limb (B9's the same point as
+// its plain version's, in other XYZZ coordinates: its additions run in
+// another order).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -361,6 +393,197 @@ __global__ void __launch_bounds__(32 * GROUP, 1) horner_kernel(Coords4 win, Coor
         if (live) store_limbs16(out[k] + b, nb, sld(S, X1 + k, lane));
 }
 
+// ---------------------------------------------------------------------------
+// B9. Lane 2u of a block accumulates for unit u (P = acc), lane 2u + 1 runs
+// (P = run); every addition of the kernel is one group_add over all 32
+// lanes, P in slots 0-3 plus Q in slots 4-7, whose result replaces P. Before
+// it, each lane stages its Q: another lane's P, a bucket, or the identity.
+// Warp c stages and writes back coordinate c of every lane, so a lane's P
+// changes only after every lane that reads it has staged.
+// ---------------------------------------------------------------------------
+namespace integ {
+
+constexpr int UNITS = GPTS / 2;  // units a block; ops/cuda_msm.py states the same INTEGRATE_UNITS
+constexpr int LOG_UNITS = 4;
+constexpr int CPW = (4 + GROUP - 1) / GROUP;  // coordinates a warp stages and writes back
+static_assert(UNITS == 1 << LOG_UNITS, "LOG_UNITS");
+
+struct Plan {
+    int rows, B;
+    int cols;  // units of a row in a block: a power of two, at most UNITS
+    int nbk;   // blocks of a row; cols == UNITS where nbk > 1
+    int J;     // steps: the buckets of a unit
+};
+
+__device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
+
+// Q of lane `lane`, coordinate c: P of lane `from`, or the identity where from < 0
+__device__ __forceinline__ void stage(Slots& S, int c, int lane, int from) {
+    sst(S, X2 + c, lane, from >= 0 ? sld(S, X1 + c, from) : fzero());
+}
+
+// P + Q on every lane into P, the block synchronized before and after
+__device__ __forceinline__ void add_into_p(Slots& S, int warp, int lane) {
+    __syncthreads();
+    group_add(S, warp, lane);
+    for (int c = warp; c < 4; c += GROUP) sst(S, X1 + c, lane, add_result(S, c, lane));
+    __syncthreads();
+}
+
+// One addition in which every lane stages Q from lane `from` (or the identity)
+__device__ __forceinline__ void add_from(Slots& S, int warp, int lane, int from) {
+    for (int c = warp; c < 4; c += GROUP) stage(S, c, lane, from);
+    add_into_p(S, warp, lane);
+}
+
+// A row's partial sums in scratch: (rows, nbk, 3, 4, 12) words, `which` 0
+// for omega, 1 for rho, 2 for L
+__device__ __forceinline__ uint32_t* part_at(uint32_t* part, const Plan& pl, int row, int beta, int which, int c) {
+    return part + ((((size_t)row * pl.nbk + beta) * 3 + which) * 4 + c) * NL;
+}
+
+__device__ __forceinline__ void put_words(uint32_t* p, const Fp& a) {
+#pragma unroll
+    for (int i = 0; i < NL; i++) p[i] = a.v[i];
+}
+
+__device__ __forceinline__ Fp get_words(const uint32_t* p) {
+    Fp r;
+#pragma unroll
+    for (int i = 0; i < NL; i++) r.v[i] = __ldcg(p + i);  // from L2: other blocks wrote them
+    return r;
+}
+
+// buckets: (24, rows, B) 16-bit limbs, bucket b of row r at column r B + b;
+// out: (24, rows). Block: GROUP warps on 16 units, lanes 2u and 2u + 1.
+__global__ void __launch_bounds__(32 * GROUP, 5) integrate_kernel(Coords4 in, Coords4 out, Plan pl,
+                                                                  uint32_t* __restrict__ part, int* __restrict__ count) {
+    __shared__ Slots S;
+    __shared__ int is_last;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int u = lane >> 1;
+    const bool run = lane & 1;
+    const int cols = pl.cols, tau = log2_pow2(cols);
+    const int i = u & (cols - 1);  // the unit's column in its block's share of the row
+    int row, beta, t, T;           // the unit's row, block of the row, column among the row's T units
+    if (pl.nbk > 1) {
+        row = blockIdx.x / pl.nbk;
+        beta = blockIdx.x % pl.nbk;
+        t = beta * UNITS + u;
+        T = UNITS * pl.nbk;
+    } else {
+        row = blockIdx.x * (UNITS / cols) + u / cols;
+        beta = 0;
+        t = i;
+        T = cols;
+    }
+    const bool in_rows = row < pl.rows;
+    const size_t plane = (size_t)pl.rows * pl.B;
+
+    // S_b for step j, coordinate c, on a run lane; the identity for b = 0
+    // (weight 0) and past the row's end
+    auto bucket = [&](int c, int j) -> Fp {
+        const int b = j * T + t;
+        if (!run || !in_rows || b < 1 || b >= pl.B) return fzero();
+        return load_limbs16(in[c] + (size_t)row * pl.B + b, plane);
+    };
+
+    // the running sums: acc += run, run += S_b, from the top step down; a
+    // step's bucket is loaded one step ahead
+    Fp next[CPW];
+#pragma unroll
+    for (int q = 0; q < CPW; q++) {
+        const int c = warp + q * GROUP;
+        if (c < 4) {
+            sst(S, X1 + c, lane, fzero());
+            next[q] = bucket(c, pl.J - 1);
+        }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int j = pl.J - 1; j >= 0; j--) {
+#pragma unroll
+        for (int q = 0; q < CPW; q++) {
+            const int c = warp + q * GROUP;
+            if (c >= 4) continue;
+            if (run) {
+                sst(S, X2 + c, lane, next[q]);
+                if (j > 0) next[q] = bucket(c, j - 1);
+            } else {
+                stage(S, c, lane, lane + 1);
+            }
+        }
+        add_into_p(S, warp, lane);
+    }
+
+    // the units of a block's share of the row: all-reduce of W on the acc
+    // lanes beside a suffix scan of R on the run lanes, Z_i = Omega + Suf_i
+    // (Z_0 = Omega) on the acc lanes, a tree sum of the Z
+    for (int l = 0; l < tau; l++) {
+        const int h = 1 << l;
+        add_from(S, warp, lane, run ? (i + h < cols ? 2 * (u + h) + 1 : -1) : 2 * (u ^ h));
+    }
+    if (pl.nbk > 1 && u == 0)
+        for (int c = warp; c < 4; c += GROUP) put_words(part_at(part, pl, row, beta, run, c), sld(S, X1 + c, lane));
+    if (tau > 0) add_from(S, warp, lane, !run && i > 0 ? lane + 1 : -1);
+    for (int l = 0; l < tau; l++) {
+        const int h = 1 << l;
+        add_from(S, warp, lane, !run && (i & (2 * h - 1)) == 0 ? 2 * (u + h) : -1);
+    }
+    if (pl.nbk == 1) {
+        if (!run && i == 0 && in_rows)
+            for (int c = warp; c < 4; c += GROUP) store_limbs16(out[c] + row, pl.rows, sld(S, X1 + c, lane));
+        return;
+    }
+
+    // a row over several blocks: its last block to finish adds the partials
+    if (u == 0 && !run)
+        for (int c = warp; c < 4; c += GROUP) put_words(part_at(part, pl, row, beta, 2, c), sld(S, X1 + c, lane));
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        is_last = atomicAdd(count + row, 1) == pl.nbk - 1;
+        if (is_last) count[row] = 0;  // ready for the next launch
+    }
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    const int nb = pl.nbk, tau2 = 32 - __clz(nb - 1);  // nb <= 2^tau2 <= UNITS
+    for (int c = warp; c < 4; c += GROUP)
+        sst(S, X1 + c, lane, u < nb ? get_words(part_at(part, pl, row, u, run, c)) : fzero());
+    __syncthreads();
+    // all-reduce of the omegas beside a suffix scan of the rhos
+    for (int l = 0; l < tau2; l++) {
+        const int h = 1 << l;
+        add_from(S, warp, lane, run ? (u + h < (1 << tau2) ? 2 * (u + h) + 1 : -1) : 2 * (u ^ h));
+    }
+    // run lanes: Z_beta = Omega + Suf_beta for 1 <= beta < nb, else the
+    // identity; acc lanes: L_beta
+    for (int c = warp; c < 4; c += GROUP) stage(S, c, lane, run ? lane - 1 : -1);
+    __syncthreads();
+    group_add(S, warp, lane);
+    for (int c = warp; c < 4; c += GROUP) {
+        Fp r = fzero();
+        if (u < nb) r = run ? (u > 0 ? add_result(S, c, lane) : r) : get_words(part_at(part, pl, row, u, 2, c));
+        sst(S, X1 + c, lane, r);
+    }
+    __syncthreads();
+    // tree sums of both: sum L on lane 0, sum Z on lane 1
+    for (int l = 0; l < tau2; l++) {
+        const int h = 1 << l;
+        add_from(S, warp, lane, (u & (2 * h - 1)) == 0 ? 2 * (u + h) + run : -1);
+    }
+    // 16 sum Z (lane 1), then sum L + 16 sum Z (lane 0)
+    const DblSlots in_place = {X1, Y1, ZZ1, ZZZ1, X1, Y1, ZZ1, ZZZ1, U1, U2, S1, S2, PP, RR};
+#pragma unroll 1
+    for (int d = 0; d < LOG_UNITS; d++) group_dbl(S, in_place, lane == 1, warp, lane);
+    add_from(S, warp, lane, lane == 0 ? 1 : -1);
+    if (lane == 0)
+        for (int c = warp; c < 4; c += GROUP) store_limbs16(out[c] + row, pl.rows, sld(S, X1 + c, lane));
+}
+
+}  // namespace integ
+
 }  // namespace
 
 extern "C" int kzg_seg_scan_phase1(const void* rows, const void* idx, const void* first, void* ox,
@@ -393,5 +616,24 @@ extern "C" int kzg_horner(const void* wx, const void* wy, const void* wzz, const
     Coords4 out = {(int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz};
     const int grid = (nb + GPTS - 1) / GPTS;
     horner_kernel<<<grid, 32 * GROUP, 0, (cudaStream_t)stream>>>(win, out, nb, w, c);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_integrate(const void* bx, const void* by, const void* bzz, const void* bzzz, void* ox, void* oy,
+                             void* ozz, void* ozzz, int rows, int B, int cols, int nbk, int J, void* part, void* count,
+                             void* stream) {
+    using namespace integ;
+    if (rows < 1 || B < 1 || J < 1 || cols < 1 || cols > UNITS || (cols & (cols - 1)) || nbk < 1 || nbk > UNITS ||
+        (nbk > 1 && cols != UNITS) || (long long)J * cols * nbk < B)
+        return (int)cudaErrorInvalidValue;
+    // five blocks' slots need more than the default shared memory carveout
+    cudaError_t err = cudaFuncSetAttribute(integrate_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    Coords4 in = {(int32_t*)bx, (int32_t*)by, (int32_t*)bzz, (int32_t*)bzzz};
+    Coords4 out = {(int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz};
+    const Plan pl = {rows, B, cols, nbk, J};
+    const int grid = nbk > 1 ? rows * nbk : (rows + UNITS / cols - 1) / (UNITS / cols);
+    integrate_kernel<<<grid, 32 * GROUP, 0, (cudaStream_t)stream>>>(in, out, pl, (uint32_t*)part, (int*)count);
     return (int)cudaGetLastError();
 }

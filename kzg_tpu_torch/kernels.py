@@ -41,6 +41,7 @@ SIGNATURES = {
     "kzg_seg_scan_phase1": ([_p] * 7 + [_i, _i, _p], "msm_kernels.cu"),
     "kzg_add_unified": ([_p] * 12 + [_i, _p], "msm_kernels.cu"),
     "kzg_horner": ([_p] * 8 + [_i, _i, _i, _p], "msm_kernels.cu"),
+    "kzg_integrate": ([_p] * 8 + [_i] * 5 + [_p] * 3, "msm_kernels.cu"),
     "kzg_ntt_tile": ([_p] * 4 + [_i, _ll, _p], "fft_kernels.cu"),
     "kzg_ntt_stage": ([_p] * 3 + [_i, _i, _ll, _p], "fft_kernels.cu"),
     "kzg_gather_rows": ([_p] * 4 + [_ll, _ll, _i, _p], "gather_kernels.cu"),

@@ -7,6 +7,8 @@ version. The counterpart of the JAX package's ops/pallas_msm.py.
                        pallas_msm.py:_add_call
   horner_windows       kernel B3 (csrc/msm_kernels.cu), replaces
                        pallas_msm.py:_horner_call
+  integrate_buckets    kernel B9 (csrc/msm_kernels.cu), bucket integration
+                       (no TPU kernel: the JAX package's is jnp code)
 
 A wrapper runs its plain version (`*_ref`) for tensors on the CPU. For a
 CUDA tensor it launches the kernel, or raises: nothing falls back. Each
@@ -54,6 +56,18 @@ DBL_DEPTH = 3
 # kernels' compile-time GROUP in csrc/g1.cuh, chosen by measurement on the
 # card among 2, 4 and 8 (PERF.md). A CPU test holds the two equal.
 GROUP = 4
+# Units of a block of B9, two of its 32 addition lanes each: the kernel's
+# compile-time integ::UNITS in csrc/msm_kernels.cu. A CPU test holds the two
+# equal.
+INTEGRATE_UNITS = 16
+# Blocks an SM runs at the pace of one, in B9's plan: a block keeps one
+# product a round in flight on each of the SM's four schedulers, and a
+# round (a product's dependent chain of multiply-adds and the block's
+# barrier) is longer than the issue time of its products. Measured on the
+# H100 (PERF.md): a round 3.2 us with one block an SM, 7.2 us with 4.4;
+# at 2.5 the plan picks, at each of the MSMs' shapes, a grid within 6% of
+# the fastest of the grids timed there.
+SM_BLOCKS_AT_PACE = 2.5
 # Warps per block of 32 chunk lanes in B1: the kernel's compile-time
 # scan::GROUP in csrc/msm_kernels.cu, one per product of a round of the
 # mixed addition (at most 3). A CPU test holds the two equal.
@@ -195,4 +209,114 @@ def horner_windows(win: g1.G1XYZZ, c: int) -> g1.G1XYZZ:
     )
     tracing.count("launch.horner")
     launch.check_launch(rc, "horner")
+    return g1.G1XYZZ(*out)
+
+
+# ---------------------------------------------------------------------------
+# B9: bucket integration
+# ---------------------------------------------------------------------------
+
+
+def _weighted_index_sum(p: g1.G1XYZZ) -> g1.G1XYZZ:
+    """sum_k k * p[..., k] over a small last axis by a suffix scan:
+    sum_k k S_k = sum_{j>=1} sum_{k>=j} S_k. Returns (..., 1)."""
+    tail = g1.map_coords(lambda c: c[..., 1:], p)
+    return g1.tree_reduce(g1.suffix_scan_add(tail))
+
+
+def integrate_buckets_ref(buckets: g1.G1XYZZ) -> g1.G1XYZZ:
+    """Plain version of B9: sum_b b * buckets[..., b] over the last axis
+    (index 0 has weight 0). With b = hi * G + lo (G about sqrt(B)): G *
+    sum_hi hi A_hi + sum_lo lo B_lo, where A_hi and B_lo sum the rows and
+    the columns of the (H, G) bucket square. Returns (..., 1)."""
+    B = buckets.x.shape[-1]
+    if B <= 32:
+        return _weighted_index_sum(buckets)
+    g_bits = (B - 1).bit_length() // 2
+    G = 1 << g_bits
+    H = -(-B // G)
+    buckets = g1.map_coords(lambda c: fl._pad_last(c, H * G), buckets)
+    sq = g1.map_coords(lambda c: c.reshape(c.shape[:-1] + (H, G)), buckets)
+    a_hi = g1.map_coords(lambda c: c[..., 0], g1.tree_reduce(sq))  # (..., H)
+    b_lo = g1.tree_reduce(g1.map_coords(lambda c: c.transpose(-1, -2), sq))
+    b_lo = g1.map_coords(lambda c: c[..., 0], b_lo)  # (..., G)
+    wa = g1.dbl_n(g1.map_coords(lambda c: c[..., 0], _weighted_index_sum(a_hi)), g_bits)
+    wb = g1.map_coords(lambda c: c[..., 0], _weighted_index_sum(b_lo))
+    return g1.map_coords(lambda c: c[..., None], g1.add_unified(wa, wb))
+
+
+def integrate_rounds(cols: int, nbk: int, J: int):
+    """Product rounds on the chain of one of B9's blocks (J steps, then the
+    combination of its cols units), and of a row's last block after it
+    where the row spans nbk > 1 blocks: (block, last)."""
+    tau = cols.bit_length() - 1
+    block = ADD_DEPTH * (J + (2 * tau + 1 if tau else 0))
+    if nbk == 1:
+        return block, 0
+    tau2 = (nbk - 1).bit_length()
+    return block, ADD_DEPTH * (2 * tau2 + 2) + DBL_DEPTH * (INTEGRATE_UNITS.bit_length() - 1)
+
+
+def integrate_plan(rows: int, B: int, sms: int):
+    """B9's grid for rows of B buckets on a card of `sms` SMs: (cols, nbk,
+    J), a row's units cols in a block (a power of two) times nbk blocks (cols
+    = INTEGRATE_UNITS where nbk > 1), each unit summing J buckets. Of the
+    shapes that cover B, the one whose longer time is least: the rounds on
+    its chain, or the rounds of all its blocks shared by the SMs, each
+    running SM_BLOCKS_AT_PACE blocks at the pace of one; fewer blocks
+    break a tie."""
+    U = INTEGRATE_UNITS
+    best = None
+    for cols, nbk in [(1 << k, 1) for k in range(U.bit_length())] + [(U, n) for n in range(2, U + 1)]:
+        J = -(-B // (cols * nbk))
+        blocks = rows * nbk if nbk > 1 else -(-rows * cols // U)
+        block, last = integrate_rounds(cols, nbk, J)
+        key = (max(block + last, blocks * block / (sms * SM_BLOCKS_AT_PACE)), blocks)
+        if best is None or key < best[0]:
+            best = (key, (cols, nbk, J))
+    return best[1]
+
+
+_row_counts: dict = {}
+
+
+def _counts(dev: torch.device, rows: int) -> torch.Tensor:
+    """B9's arrivals a row (int32), zeroed when allocated; each launch
+    leaves them at zero."""
+    c = _row_counts.get(dev)
+    if c is None or c.numel() < rows:
+        c = torch.zeros(max(rows, 64), dtype=torch.int32, device=dev)
+        _row_counts[dev] = c
+    return c
+
+
+@launch.counted("integrate")
+def integrate_buckets(buckets: g1.G1XYZZ) -> g1.G1XYZZ:
+    """sum_{b=1}^{B-1} b S_b of every row. buckets: XYZZ bucket sums, each
+    coordinate a contiguous (24, rows, B) int32 tensor, B at least 1.
+    Returns XYZZ (24, rows): the plain version's points, in other
+    coordinates on the card."""
+    dev = buckets.x.device
+    if buckets.x.dim() != 3 or buckets.x.shape[2] < 1:
+        raise ValueError(f"bx: shape {tuple(buckets.x.shape)}, expected (24, rows, B), B at least 1")
+    _, rows, B = buckets.x.shape
+    for name, t in zip(("bx", "by", "bzz", "bzzz"), buckets):
+        launch.check(t, name, torch.int32, (L, rows, B), dev)
+    if dev.type == "cpu":
+        return g1.map_coords(lambda t: t[..., 0], integrate_buckets_ref(buckets))
+    launch.require_cuda(dev)
+    out = [torch.empty((L, rows), dtype=fl.LIMB_DTYPE, device=dev) for _ in range(4)]
+    if rows == 0:
+        return g1.G1XYZZ(*out)
+    cols, nbk, J = integrate_plan(rows, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # a row over nbk > 1 blocks: its blocks' partial sums, and the count of
+    # its blocks that have finished
+    part = torch.empty(rows * nbk * 3 * 4 * (L // 2), dtype=torch.int32, device=dev) if nbk > 1 else None
+    count = _counts(dev, rows) if nbk > 1 else None
+    rc = launch.kernels().kzg_integrate(
+        *(t.data_ptr() for t in buckets), *(o.data_ptr() for o in out), rows, B, cols, nbk, J,
+        None if part is None else part.data_ptr(), None if count is None else count.data_ptr(), launch.stream(),
+    )
+    tracing.count("launch.integrate")
+    launch.check_launch(rc, "integrate")
     return g1.G1XYZZ(*out)

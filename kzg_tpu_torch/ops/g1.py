@@ -92,6 +92,13 @@ def dbl(p: G1XYZZ) -> G1XYZZ:
     return G1XYZZ(x3, _sub(y3a, wy), zz3, zzz3)
 
 
+def dbl_n(p: G1XYZZ, n: int) -> G1XYZZ:
+    """2^n p by n doublings."""
+    for _ in range(n):
+        p = dbl(p)
+    return p
+
+
 def add_unified_plain(p: G1XYZZ, q: G1XYZZ) -> G1XYZZ:
     """Branchless complete XYZZ addition (add-2008-s plus the doubling of
     p), in 4 stacked product rounds with the doubling's rounds fused in, as

@@ -9,7 +9,9 @@ segmented scan. The counterpart of the JAX package's ops/msm.py, fixed-base
      card); phase 2 scans the chunk aggregates and phase 3 adds the carry
      into each chunk's first segment end (complete additions, kernel B2 on
      the card). Bucket b's sum is read at its last sorted element.
-  3. Bucket integration sum_b b * S_b by a square split of the bucket axis.
+  3. Bucket integration sum_b b * S_b of every (batch, window) row: kernel
+     B9 on the card (running sums), a square split of the bucket axis on
+     the CPU.
   4. Window combination. Fixed base: none, the table holds 2^(c j) P_i for
      every window j (BGMW), so all windows share one bucket space. Variable
      base: every (batch, window) pair has its own buckets, and the window
@@ -227,39 +229,15 @@ def _bucket_sums_mem(rows_packed: torch.Tensor, lay: ScanLayout, n_keys: int) ->
     return g1.select_point(hit, out, g1.infinity((n_keys,), dev))
 
 
-def _weighted_index_sum(p: G1XYZZ) -> G1XYZZ:
-    """sum_k k * p[..., k] over a small last axis by a suffix scan:
-    sum_k k S_k = sum_{j>=1} sum_{k>=j} S_k. Returns (..., 1)."""
-    tail = map_coords(lambda c: c[..., 1:], p)
-    return g1.tree_reduce(g1.suffix_scan_add(tail))
-
-
-def _dbl_n(p: G1XYZZ, n: int) -> G1XYZZ:
-    for _ in range(n):
-        p = g1.dbl(p)
-    return p
-
-
 @tracing.span("kzg.msm.integrate")
 def integrate_buckets(buckets: G1XYZZ) -> G1XYZZ:
-    """sum_b b * buckets[..., b] over the last axis (index 0 has weight 0).
-    With b = hi * G + lo (G about sqrt(B)): G * sum_hi hi A_hi +
-    sum_lo lo B_lo, where A_hi and B_lo sum the rows and the columns of the
-    (H, G) bucket square. Returns (..., 1)."""
-    B = buckets.x.shape[-1]
-    if B <= 32:
-        return _weighted_index_sum(buckets)
-    g_bits = (B - 1).bit_length() // 2
-    G = 1 << g_bits
-    H = -(-B // G)
-    buckets = map_coords(lambda c: fl._pad_last(c, H * G), buckets)
-    sq = map_coords(lambda c: c.reshape(c.shape[:-1] + (H, G)), buckets)
-    a_hi = map_coords(lambda c: c[..., 0], g1.tree_reduce(sq))  # (..., H)
-    b_lo = g1.tree_reduce(map_coords(lambda c: c.transpose(-1, -2), sq))
-    b_lo = map_coords(lambda c: c[..., 0], b_lo)  # (..., G)
-    wa = _dbl_n(map_coords(lambda c: c[..., 0], _weighted_index_sum(a_hi)), g_bits)
-    wb = map_coords(lambda c: c[..., 0], _weighted_index_sum(b_lo))
-    return map_coords(lambda c: c[..., None], g1.add_unified(wa, wb))
+    """sum_b b * buckets[..., b] over the last axis (index 0 has weight 0),
+    each leading index its own row: one launch of kernel B9 on the card,
+    its plain version (a square split of the bucket axis) on the CPU
+    (ops/cuda_msm.py integrate_buckets). Returns (..., 1)."""
+    shape = tuple(buckets.x.shape)
+    rows = map_coords(lambda c: c.reshape(shape[0], int(np.prod(shape[1:-1])), shape[-1]).contiguous(), buckets)
+    return map_coords(lambda c: c.reshape(shape[:-1] + (1,)), cuda_msm.integrate_buckets(rows))
 
 
 class FixedBaseTable(NamedTuple):
@@ -288,7 +266,7 @@ def build_fixed_base_table(points: G1Aff, c: Optional[int] = None) -> FixedBaseT
     cur = g1.from_affine(points)
     rows = [cur]
     for _ in range(w - 1):
-        cur = _dbl_n(cur, c)
+        cur = g1.dbl_n(cur, c)
         rows.append(cur)
     stacked = G1XYZZ(*(torch.stack([r[k] for r in rows], dim=1) for k in range(4)))
     aff = g1.to_affine(stacked)

@@ -33,7 +33,7 @@ The names, all under `kzg.` (families partition an API call's time):
                              inside kzg.body.recover
   kzg.msm.fixed, .var        ops/msm.py; stages .scan (B1 and the
                              segmented scan), .integrate (bucket
-                             integration), .combine (B3)
+                             integration, B9), .combine (B3)
   kzg.g1fft                  ops/g1fft.py: G1 FFTs and FK20's ladders
   kzg.ntt                    ops/fft.py: the Fr NTTs (B4, B5)
   kzg.inv                    ops/field.py inv: a Fermat inversion

@@ -24,6 +24,7 @@ from kzg_tpu_torch import convert
 from kzg_tpu_torch.ops import cuda_msm
 from kzg_tpu_torch.ops import field as tf
 from kzg_tpu_torch.ops import g1 as tg
+from kzg_tpu_torch.ops import launch
 from kzg_tpu_torch.ops import msm as tm
 
 torch.set_num_threads(1)  # one core per test worker: the suite runs several at once
@@ -193,15 +194,62 @@ def test_phase1_wrapper_checks_its_inputs(points):
 
 @pytest.mark.parametrize("B", [20, 129])
 def test_integrate_buckets_matches_oracle(points, B):
-    """sum_b b * S_b, through the direct path (B <= 32) and the square split."""
-    pts = (points * 3)[:B]
-    buckets = tg.from_affine(tg.affine_from_ints(pts, "cpu"))
-    buckets = tg.map_coords(lambda c: c[:, None, :], buckets)  # (24, 1, B)
+    """sum_b b * S_b, through the direct path (B <= 32) and the square
+    split, for two rows at once (the second the first reversed)."""
+    rows = [(points * 3)[:B], (points * 3)[:B][::-1]]
+    buckets = tg.from_affine(tg.affine_from_ints(rows[0] + rows[1], "cpu"))
+    buckets = tg.map_coords(lambda c: c.reshape(c.shape[0], 2, B), buckets)  # (24, 2, B)
     got = tg.xyzz_to_ints(tg.map_coords(lambda c: c[..., 0], tm.integrate_buckets(buckets)))
-    want = None
-    for b, p in enumerate(pts):
-        want = G1.affine_add(want, G1.mul_scalar(p, b) if p is not None else None)
-    assert got == [want]
+    want = []
+    for pts in rows:
+        acc = None
+        for b, p in enumerate(pts):
+            acc = G1.affine_add(acc, G1.mul_scalar(p, b) if p is not None else None)
+        want.append(acc)
+    assert got == want
+
+
+def test_integrate_wrapper_checks_its_inputs(points):
+    """B9's wrapper takes contiguous (24, rows, B) int32 coordinates, B at
+    least 1, and raises on anything else; on the CPU it runs its plain
+    version and launches nothing, for no rows too."""
+    b = tg.from_affine(tg.affine_from_ints(points[:12], "cpu"))
+    b = tg.map_coords(lambda c: c.reshape(c.shape[0], 3, 4).contiguous(), b)
+    launch.reset_launches()
+    got = cuda_msm.integrate_buckets(b)
+    for a, r in zip(got, cuda_msm.integrate_buckets_ref(b)):
+        assert torch.equal(a, r[..., 0])
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_msm.integrate_buckets(tg.map_coords(lambda c: c.long(), b))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_msm.integrate_buckets(tg.map_coords(lambda c: c.reshape(c.shape[0], 12), b))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_msm.integrate_buckets(tg.G1XYZZ(b.x, b.y[:, :2].contiguous(), b.zz, b.zzz))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_msm.integrate_buckets(tg.map_coords(lambda c: c[..., :0].contiguous(), b))
+    assert tuple(cuda_msm.integrate_buckets(tg.map_coords(lambda c: c[:, :0].contiguous(), b)).x.shape) == (24, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_msm.integrate_buckets(tg.map_coords(lambda c: c.transpose(1, 2).contiguous().transpose(1, 2), b))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cuda_msm.integrate_buckets(tg.map_coords(lambda c: c.to("meta"), b))
+    assert launch.launches()["integrate"] == 0
+
+
+def test_integrate_plan_covers_every_bucket():
+    """B9's grid: a row's units cols in a block (a power of two up to the
+    block's 16) times nbk blocks (whole blocks where nbk > 1), J buckets
+    each, cover all B buckets; at the main paths' shapes on 132 SMs, one
+    block a row where that keeps the chain short, several rows a block
+    at the FK20 column MSM's 2304 rows, a row over several blocks at the
+    fixed-base MSMs' one to six rows."""
+    shapes = [(74, 65), (37, 65), (1, 257), (64, 129), (6, 4097), (2304, 129), (4, 9), (1, 1), (3, 2), (5000, 33)]
+    plans = {shape: cuda_msm.integrate_plan(*shape, 132) for shape in shapes}
+    for (rows, B), (cols, nbk, J) in plans.items():
+        assert cols in (1, 2, 4, 8, 16) and 1 <= nbk <= 16 and (nbk == 1 or cols == 16)
+        assert J * cols * nbk >= B > (J - 1) * cols * nbk
+    assert plans[(74, 65)] == (16, 1, 5) and plans[(64, 129)] == (16, 1, 9)
+    assert plans[(2304, 129)] == (4, 1, 33)
+    assert plans[(6, 4097)][1] > 1 and plans[(1, 257)][1] > 1
 
 
 def test_table_and_msm_match_jax(points, tables):

@@ -175,7 +175,7 @@ def test_add_points_checks_inputs_and_has_no_fallback():
     meta = g1.map_coords(lambda c: c.to("meta"), p)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_msm.add_points(meta, meta)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "integrate": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
 
 
 def _fr_values(B, n, seed=1):
@@ -200,7 +200,7 @@ def test_ntt_wrappers_check_inputs_and_have_no_fallback():
         cuda_fft.ntt_tile(x.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         cuda_fft.ntt_stage(x.to("meta"), 1)
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "integrate": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
 
 
 def test_field_inv_has_no_fallback():
@@ -227,13 +227,18 @@ def test_every_launcher_has_a_signature():
 
 def test_thread_group_is_the_kernels_own():
     """The threads per point that ops/cuda_msm.py reports are the
-    compile-time GROUP of B2's and B3's kernels, and SCAN_GROUP B1's."""
+    compile-time GROUP of B2's and B3's kernels, and SCAN_GROUP B1's;
+    INTEGRATE_UNITS is B9's units a block, half its 32 lanes."""
     import re
 
     with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", "g1.cuh")) as f:
-        assert re.findall(r"constexpr int GROUP = (\d+);", f.read()) == [str(cuda_msm.GROUP)]
+        text = f.read()
+    assert re.findall(r"constexpr int GROUP = (\d+);", text) == [str(cuda_msm.GROUP)]
+    assert re.findall(r"constexpr int GPTS = (\d+);", text) == [str(2 * cuda_msm.INTEGRATE_UNITS)]
     with open(os.path.join(REPO, "kzg_tpu_torch", "csrc", "msm_kernels.cu")) as f:
-        assert re.findall(r"constexpr int GROUP = (\d+);", f.read()) == [str(cuda_msm.SCAN_GROUP)]
+        text = f.read()
+    assert re.findall(r"constexpr int GROUP = (\d+);", text) == [str(cuda_msm.SCAN_GROUP)]
+    assert "constexpr int UNITS = GPTS / 2;" in text
 
 
 def test_kernel_variants_edit_the_sources_as_they_are():
@@ -489,7 +494,9 @@ def test_msm_on_the_card_matches_the_cpu(cuda_device):
     rng = np.random.default_rng(8)
     sc = torch.from_numpy(ints_to_limbs([int.from_bytes(rng.bytes(31), "big") for _ in range(64)], 16))
     table_d = msm.FixedBaseTable(*(t.to(cuda_device) for t in table[:3]), table.c)
+    launch.reset_launches()
     got = g1.xyzz_to_ints(msm.msm_fixed(table_d, sc.to(cuda_device)))
+    assert launch.launches()["integrate"] == 1
     assert got == g1.xyzz_to_ints(msm.msm_fixed(table, sc))
 
 
@@ -537,6 +544,104 @@ def test_horner_kernel_edge_shapes(cuda_device, nb, w, c):
         assert torch.equal(a.cpu(), b)
 
 
+def _buckets(rows, B, device, seed):
+    """XYZZ bucket sums (24, rows, B): 2 P + Q of seeded points of a pool,
+    P negated at random (zz neither one nor shared), a tenth the identity;
+    where rows >= 6, rows 0-5 are the edge cases: all identities, one point
+    in every bucket (P == Q in the running sums), one point with
+    alternating signs, adjacent pairs S, -S, one point at bucket B - 1
+    alone, one point at bucket 0 alone (weight 0)."""
+    pool = g1.from_affine(g1.affine_from_ints(_points(64), device))
+    rng = np.random.default_rng(seed)
+    n = rows * B
+
+    def pick():
+        idx = torch.from_numpy(rng.integers(0, 64, n)).to(device)
+        return g1.map_coords(lambda c: c[:, idx], pool)
+
+    p = pick()
+    p = g1.select_point(torch.from_numpy(rng.random(n) < 0.5).to(device), g1.neg(p), p)
+    s = g1.add_unified(g1.dbl(p), pick())
+    s = g1.select_point(torch.from_numpy(rng.random(n) < 0.1).to(device), g1.infinity((n,), device), s)
+    s = g1.map_coords(lambda c: c.reshape(24, rows, B).contiguous(), s)
+    if rows >= 6:
+        one = g1.dbl(g1.map_coords(lambda c: c[:, :1], pool))  # (24, 1)
+        neg_one = g1.neg(one)
+        pairs = g1.neg(g1.map_coords(lambda c: c[:, 3, 0::2], s))
+        for k in range(4):
+            c = s[k]
+            c[:, [0, 4, 5]] = 0
+            c[:, 1] = one[k]
+            c[:, 2, 0::2], c[:, 2, 1::2] = one[k], neg_one[k]
+            c[:, 3, 1::2] = pairs[k][:, : B // 2]
+            c[:, 4, B - 1] = one[k][:, 0]
+            c[:, 5, 0] = one[k][:, 0]
+    return s
+
+
+def _integrate_matches_plain(b):
+    """B9 and its plain version (on the card) give the same affine points."""
+    got = g1.to_affine(cuda_msm.integrate_buckets(b))
+    ref = g1.to_affine(g1.map_coords(lambda c: c[..., 0], cuda_msm.integrate_buckets_ref(b)))
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    return got
+
+
+# (rows, B): the MSMs' shapes (the verify lincombs at c = 7 and 8, the
+# interpolation MSM, the commitment MSM, the FK20 column MSM of 9 and of 18
+# blobs, c = 4's nine buckets), then one of each grid B9 takes: a row over
+# 16 and over 4 blocks, 8, 1 and 2 units a row, one bucket
+INTEGRATE_SHAPES = [(74, 65), (37, 65), (1, 257), (64, 129), (6, 4097), (1152, 129), (2304, 129), (3, 9),
+                    (1, 4097), (2, 300), (5, 33), (7, 5), (6, 9), (1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, B", INTEGRATE_SHAPES)
+def test_integrate_kernel_matches_plain(cuda_device, rows, B):
+    """B9 against its plain version as affine points (XYZZ is not
+    unique), the edge rows of _buckets among the rows from 6 rows on."""
+    got = _integrate_matches_plain(_buckets(rows, B, cuda_device, seed=rows * 10007 + B))
+    if rows >= 6:
+        assert bool(got.inf[0]) and bool(got.inf[5]) and not bool(got.inf[1:5].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [9, 65, 257, 4097])
+def test_integrate_kernel_edge_rows_alone(cuda_device, B):
+    """Each edge row of _buckets as a call of its own row, so that every
+    grid a row of B buckets takes meets it (a row over several blocks from
+    257 on), and all six together."""
+    b = _buckets(6, B, cuda_device, seed=B)
+    for r in range(6):
+        _integrate_matches_plain(g1.map_coords(lambda c: c[:, r : r + 1].contiguous(), b))
+    _integrate_matches_plain(b)
+
+
+@pytest.mark.gpu
+def test_integration_is_one_launch_on_a_card(cuda_device):
+    """msm.integrate_buckets of a verify lincomb's (batch, window) rows
+    and of a commitment's: one launch of B9, no other kernel (no B2, no
+    plain doubling); the row counts stay at zero for the next call; no
+    rows, no launch."""
+    for shape in ((2, 37, 65), (6, 4097)):
+        b = g1.map_coords(lambda c: c.reshape((24,) + shape), _buckets(int(np.prod(shape[:-1])), shape[-1], cuda_device, 1))
+        msm.integrate_buckets(b)  # the row counts are allocated at the first call of a shape that needs them
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = msm.integrate_buckets(b)
+            torch.cuda.synchronize()
+        assert tuple(out.x.shape) == (24,) + shape[:-1] + (1,)
+        assert launch.launches() == {**{k: 0 for k in launch.launches()}, "integrate": 1}
+        on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(on_card) == 1 and "integrate" in on_card[0], on_card
+    assert cuda_msm._row_counts and not any(bool(c.any()) for c in cuda_msm._row_counts.values())
+    launch.reset_launches()
+    assert tuple(cuda_msm.integrate_buckets(g1.map_coords(lambda c: c[:, :0].contiguous(), b)).x.shape) == (24, 0)
+    assert launch.launches()["integrate"] == 0
+
+
 @pytest.mark.gpu
 def test_variable_base_msm_on_the_card_matches_the_cpu(cuda_device):
     aff = g1.affine_from_ints(_points(40) + [None], "cpu")
@@ -548,7 +653,7 @@ def test_variable_base_msm_on_the_card_matches_the_cpu(cuda_device):
     on_card = g1.G1Aff(*(t.to(cuda_device) for t in aff2))
     launch.reset_launches()
     got = g1.xyzz_to_ints(msm.msm(on_card, sc.to(cuda_device)))
-    assert launch.launches()["horner"] == 1
+    assert launch.launches()["horner"] == 1 and launch.launches()["integrate"] == 1
     assert got == g1.xyzz_to_ints(msm.msm(aff2, sc))
 
 

@@ -115,7 +115,7 @@ def test_launch_registry_reads_as_before():
     assert launch.reset_launches is tracing.reset_launches
     tracing.count("field.inversions")
     launch.reset_launches()
-    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
+    assert launch.launches() == {"seg_scan_phase1": 0, "add_unified": 0, "horner": 0, "integrate": 0, "ntt_tile": 0, "ntt_stage": 0, "gather_rows": 0, "field_inv": 0, "g1_ladder": 0}
     tracing.count("launch.horner", 2)
     assert launch.launches()["horner"] == 2 and tracing.counters()["field.inversions"] >= 1
     launch.reset_launches()
