@@ -410,15 +410,6 @@ def _interp_poly_core(agg_m: torch.Tensor, inv_shift_pows: torch.Tensor) -> torc
     return fl.sum_tree(FR, shifted.transpose(1, 2))[..., 0]
 
 
-def _msm_auto(pts: dg1.G1Aff, sc: torch.Tensor) -> dg1.G1XYZZ:
-    """A variable-base MSM that takes the ladder below 8 points whatever
-    the batch (the JAX package's eip7594._msm_auto)."""
-    n = pts.x.shape[-1]
-    if n < 8:
-        return dg1.map_coords(lambda c: c[..., 0], dg1.msm_ladder(pts, sc))
-    return dmsm.msm_core(pts, sc, dmsm.default_window(n, fixed_base=False))
-
-
 def _verify_cell_inputs(unique_cb, commitment_indices, cell_indices, cells_bytes, proofs_bytes, r: int, device):
     """The device side's inputs: the proofs twice (24, 2, count) with the
     scalars (16, 2, count) of the proof lincomb (r^i) and of the weighted
@@ -455,9 +446,11 @@ def _verify_cell_body(p2, sc2, commitments, weights, cells, r_limbs, cell_indice
     _verify_cell_inputs): the batch-2 proof MSM, the commitment MSM and the
     commitment to the aggregated interpolation polynomial. Returns the
     affine points [proof_lincomb, weighted_proofs, commitment_sum,
-    interp_commit]."""
-    out2 = _msm_auto(p2, sc2)  # (24, 2)
-    fs = _msm_auto(commitments, weights)  # (24,)
+    interp_commit]. Both variable-base MSMs take the bucket path at any
+    count, where the JAX package's _msm_auto takes its ladder below 8
+    points (ops/msm.py msm says why)."""
+    out2 = dmsm.msm(p2, sc2)  # (24, 2)
+    fs = dmsm.msm(commitments, weights)  # (24,)
     agg_poly = _interp_poly_core(_agg_cells_core(cells, r_limbs, cell_indices), s.inv_coset_shift_pows)
     interp = dmsm.msm_fixed(s.monomial64_table, fl.to_canonical(FR, agg_poly))  # (24,)
     pts = dg1.G1XYZZ(*(torch.cat([a, b[:, None], c[:, None]], dim=-1) for a, b, c in zip(out2, fs, interp)))

@@ -241,13 +241,6 @@ def scalar_mul(a: G1Aff, scalar_limbs: torch.Tensor, nbits: int = 255) -> G1XYZZ
     return acc
 
 
-@tracing.span("kzg.msm.var")
-def msm_ladder(points: G1Aff, scalar_limbs: torch.Tensor) -> G1XYZZ:
-    """MSM for small n: the per-lane ladder, then a tree reduction along the
-    last axis. Returns (..., 1)."""
-    return tree_reduce(scalar_mul(points, scalar_limbs))
-
-
 # ---------------------------------------------------------------------------
 # Host conversions (python ints <-> limb tensors)
 # ---------------------------------------------------------------------------

@@ -43,6 +43,9 @@ from .g1 import G1Aff, G1XYZZ, map_coords
 # does not depend on the choice.
 CUDA_CHUNK_LANES = 32768
 CPU_CHUNK_LANES = 2048
+# Below this many points the JAX package's variable-base MSM takes its
+# ladder; the port counts such MSMs (`msm.small`) and runs them as any other.
+SMALL_MSM = 8
 
 
 def default_window(n: int, fixed_base: bool) -> int:
@@ -344,15 +347,19 @@ def msm_fixed(table: FixedBaseTable, scalars: torch.Tensor) -> G1XYZZ:
 # ---------------------------------------------------------------------------
 
 
-@tracing.span("kzg.msm.var")
 def msm(points: G1Aff, scalars: torch.Tensor, c: Optional[int] = None) -> G1XYZZ:
     """Variable-base MSM. points: affine (24, *batch, n); scalars: canonical
     Fr limbs (16, *batch, n), on the points' device. Returns XYZZ sums of
-    batch shape (*batch,). Below 8 points with no batch axis it takes the
-    per-lane ladder, as the JAX package's msm does."""
+    batch shape (*batch,). Every n >= 1 and every batch takes the bucket
+    path (msm_core). Here the port routes apart from the JAX package, whose
+    msm takes a per-lane double-and-add ladder below 8 points: on the card
+    a ladder step is some 2,300 plain-PyTorch launches and a scalar 255
+    steps, while the bucket path is one launch each of B1, B9 and B3 and a
+    few hundred of glue at any n. The MSMs of fewer than 8 points still
+    count under `msm.small`, one a row of the batch."""
     n = points.x.shape[-1]
-    if n < 8 and points.x.dim() == 2:
-        return map_coords(lambda cc: cc[..., 0], g1.msm_ladder(points, scalars))
+    if n < SMALL_MSM:
+        tracing.count("msm.small", int(np.prod(points.x.shape[1:-1], dtype=np.int64)))
     if c is None:
         c = default_window(n, fixed_base=False)
     return msm_core(points, scalars, c)

@@ -8,7 +8,8 @@ kernel, and nowhere else; `launches()` reads those counts alone and
 `field.inversions`, one a Fermat inversion (`ops/field.py inv`, a batch);
 `recover.passes`, one a recovery body (`eip7594._recover_body`, a chunk of
 blobs), and `recover.blobs`, the blobs it recovered (those given all 128
-cells left out).
+cells left out); `msm.small`, the variable-base MSMs of fewer than 8
+points (`ops/msm.py msm`, one a row of the batch).
 
 Spans (`span`) record exactly while a torch.profiler session is active
 (`torch.autograd.profiler._is_profiler_enabled`); otherwise a span is one

@@ -1,5 +1,5 @@
-"""kzg_tpu_torch's variable-base MSM (ops/msm.py msm, msm_core; ops/g1.py
-scalar_mul, msm_ladder) and the plain version of kernel B3
+"""kzg_tpu_torch's variable-base MSM (ops/msm.py msm, msm_core) and the
+plain version of kernel B3
 (ops/cuda_msm.py horner_windows_ref) on the CPU, against the oracle
 (Python ints) and the JAX package. Tolerance: exact. Limbs are compared
 where the same formulas run on the same values (the Horner steps); MSM
@@ -17,6 +17,7 @@ from kzg_tpu.ops import g1 as jg
 from kzg_tpu.ops import msm as jm
 from kzg_tpu.oracle.curve import G1, G1_GENERATOR
 from kzg_tpu.oracle.msm import msm as oracle_msm
+from kzg_tpu_torch import tracing
 from kzg_tpu_torch.ops import cuda_msm
 from kzg_tpu_torch.ops import field as tf
 from kzg_tpu_torch.ops import g1 as tg
@@ -37,13 +38,17 @@ def points():
     return pts
 
 
-def _scalars(seed, n, nb):
-    """nb rows of n scalars with zeros, 1, 2 and r - 1 among random ones."""
+def _scalars(seed, n, nb, turn=False):
+    """nb rows of n scalars with zeros, 1, 2 and r - 1 among random ones;
+    with `turn`, row b's edge values turned by b places (so that a row of
+    one point meets another edge value than the first row's)."""
     rng = np.random.default_rng(seed)
+    edge = (0, R - 1, 1, 2)
     rows = []
-    for _ in range(nb):
+    for b in range(nb):
         s = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
-        for i, v in zip((0, 1, 3, 4), (0, R - 1, 1, 2)):
+        k = b if turn else 0
+        for i, v in zip((0, 1, 3, 4), edge[k:] + edge[:k]):
             if i < n:
                 s[i] = v
         rows.append(s)
@@ -145,18 +150,38 @@ def test_msm_matches_oracle(points, n, nb):
     assert got == [oracle_msm(points[:n], s) for s in rows]
 
 
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("n", [1, 6, 7])
+def test_small_msm_takes_the_bucket_path(points, n, nb, monkeypatch):
+    """Below 8 points, with no batch axis (nb = 1) and with one, msm()
+    takes the bucket path, no per-lane ladder, and counts one msm.small a
+    row; the sums equal the oracle's as affine points, with the edge
+    scalars and the identity row among the points (n >= 3)."""
+    monkeypatch.setattr(tg, "scalar_mul", None)  # the ladder's step: any call raises
+    rows, limbs = _scalars(300 + 10 * n + nb, n, nb, turn=True)
+    aff = tg.affine_from_ints(points[:n], "cpu")
+    before = tracing.counters().get("msm.small", 0)
+    if nb == 1:
+        got = tg.xyzz_to_ints(tg.map_coords(lambda t: t[:, None], tm.msm(aff, torch.from_numpy(limbs[:, 0]))))
+    else:
+        got = tg.xyzz_to_ints(tm.msm(tg.repeat_batch(aff, nb), torch.from_numpy(limbs)))
+    assert tracing.counters()["msm.small"] - before == nb
+    assert got == [oracle_msm(points[:n], s) for s in rows]
+
+
 def test_small_batched_msm_takes_the_bucket_path(points):
-    """Below 8 points with a batch axis msm() keeps the bucket path (the
-    ladder is for no batch axis only); the sums equal the oracle's."""
+    """Below 8 points with a batch axis msm() takes the bucket path, as it
+    does at every n; the sums equal the oracle's."""
     rows, limbs = _scalars(5, 3, 2)
     got = tg.xyzz_to_ints(tm.msm(tg.repeat_batch(tg.affine_from_ints(points[:3], "cpu"), 2), torch.from_numpy(limbs)))
     assert got == [oracle_msm(points[:3], s) for s in rows]
 
 
-def test_msm_ladder_matches_jax(points):
-    """n = 5 with no batch axis takes the ladder: the port's msm equals the
-    JAX package's msm (its jitted ladder) and the oracle's, as affine
-    points (the two tree reductions add in different orders)."""
+def test_small_msm_matches_jax_ladder(points):
+    """n = 5 with no batch axis, where the JAX package's msm takes its
+    jitted per-lane ladder and the port the bucket path: the two sums and
+    the oracle's are the same affine point (XYZZ coordinates differ with
+    the order of the additions)."""
     n = 5
     rows, limbs = _scalars(7, n, 1)
     sc = limbs[:, 0]
@@ -172,7 +197,7 @@ def test_msm_pieces_match_jax(points):
     formula of kzg_tpu/ops/msm.py msm_core, its packed point rows), and the
     bucket sums of one window against the oracle. (The JAX package's whole
     jnp msm takes about a minute to compile on XLA:CPU; its ladder is held
-    against the port's in test_msm_ladder_matches_jax.)"""
+    against the port's bucket path in test_small_msm_matches_jax_ladder.)"""
     n, nb, c = 16, 2, 6
     _, limbs = _scalars(11, n, nb)
     aff = tg.repeat_batch(tg.affine_from_ints(points[:n], "cpu"), nb)

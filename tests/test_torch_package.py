@@ -19,6 +19,8 @@ from kzg_tpu_torch.ops import field as fl
 from kzg_tpu_torch.ops.field import FP, FR
 from kzg_tpu_torch.ops.field import ints_to_limbs
 from kzg_tpu_torch.trusted_setup import TrustedSetup
+from kzgbench.reference import pool as reference_pool
+from kzgbench.reference.curve import msm as reference_msm
 
 torch.set_num_threads(1)  # one core per test worker: the suite runs several at once
 
@@ -655,6 +657,62 @@ def test_variable_base_msm_on_the_card_matches_the_cpu(cuda_device):
     got = g1.xyzz_to_ints(msm.msm(on_card, sc.to(cuda_device)))
     assert launch.launches()["horner"] == 1 and launch.launches()["integrate"] == 1
     assert got == g1.xyzz_to_ints(msm.msm(aff2, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 2])
+@pytest.mark.parametrize("n", range(1, 8))
+def test_small_msm_on_the_card_matches_the_reference(cuda_device, n, nb, monkeypatch):
+    """Below 8 points, with no batch axis (nb = 1) and with one: one launch
+    each of B1, B9 and B3, no per-lane ladder, one msm.small a row; the
+    sums equal the reference's Python-integer MSM as affine points, with
+    0, 1, 2 and r - 1 among the scalars (turned by the row) and an identity
+    point among the points (n >= 3)."""
+    monkeypatch.setattr(g1, "scalar_mul", None)  # the ladder's step: any call raises
+    pts = _points(n)
+    if n >= 3:
+        pts[2] = None
+    rng = np.random.default_rng(100 + n)
+    edge = (0, 1, 2, FR.modulus - 1)
+    rows = [[edge[(i + b) % 4] if i < 4 else int.from_bytes(rng.bytes(32), "little") % FR.modulus for i in range(n)]
+            for b in range(nb)]
+    sc = torch.from_numpy(np.stack([ints_to_limbs(r, 16) for r in rows], 1)).to(cuda_device)
+    aff = g1.G1Aff(*(t.to(cuda_device) for t in g1.affine_from_ints(pts, "cpu")))
+    before = tracing.counters().get("msm.small", 0)
+    launch.reset_launches()
+    if nb == 1:
+        got = g1.xyzz_to_ints(g1.map_coords(lambda t: t[:, None], msm.msm(aff, sc[:, 0])))
+    else:
+        got = g1.xyzz_to_ints(msm.msm(g1.repeat_batch(aff, nb), sc))
+    counts = launch.launches()
+    assert (counts["seg_scan_phase1"], counts["integrate"], counts["horner"]) == (1, 1, 1), counts
+    assert tracing.counters()["msm.small"] - before == nb
+    assert got == [reference_msm(pts, r) for r in rows]
+
+
+@pytest.mark.gpu
+def test_six_blob_column_verifies_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """One column of a 6-blob block (EIP-7691's target) on the card: the
+    reference's commitments and cell proofs (kzgbench's pool of 16), the
+    cells from the port's compute_cells. True, with both variable-base
+    MSMs on the bucket path (3 rows of msm.small; B1 and B9 once an MSM
+    with the fixed 64-point one, B3 once a variable-base MSM) and no
+    ladder; False with one proof replaced by a seventh blob's."""
+    monkeypatch.setenv("KZG_TPU_TORCH_CACHE_DIR", str(tmp_path))
+    pool = reference_pool.load(os.path.join(REPO, "kzgbench", "pools", "mainnet-16.json"))
+    s = api.load_trusted_setup_file(SETUP, device=cuda_device)
+    col, e = 77, pool["entries"]
+    cells = [c[col] for c in api.compute_cells_and_kzg_proofs_batch(pool["blobs"][:6], s, with_proofs=False)[0]]
+    commitments = [bytes.fromhex(x["commitment"]) for x in e[:6]]
+    proofs = [bytes.fromhex(x["cell_proofs"][col]) for x in e[:7]]
+    monkeypatch.setattr(g1, "scalar_mul", None)
+    before = tracing.counters().get("msm.small", 0)
+    launch.reset_launches()
+    assert api.verify_cell_kzg_proof_batch(commitments, [col] * 6, cells, proofs[:6], s) is True
+    counts = launch.launches()
+    assert (counts["seg_scan_phase1"], counts["integrate"], counts["horner"]) == (3, 3, 2), counts
+    assert tracing.counters()["msm.small"] - before == 3
+    assert api.verify_cell_kzg_proof_batch(commitments, [col] * 6, cells, proofs[:5] + proofs[6:], s) is False
 
 
 @pytest.mark.gpu

@@ -26,7 +26,7 @@ from kzg_tpu.oracle import das as od
 from kzg_tpu.oracle.kzg import FFTSettingsOracle, KZGSettingsOracle
 from kzg_tpu.oracle.msm import msm as oracle_msm
 from kzg_tpu.settings import DeviceKZGSettings
-from kzg_tpu_torch import api, convert
+from kzg_tpu_torch import api, convert, tracing
 from kzg_tpu_torch import eip7594 as te7
 from kzg_tpu_torch.constants import R_MOD as R
 from kzg_tpu_torch.ops import g1 as tg
@@ -45,7 +45,10 @@ def _blob(seed):
 BLOBS = [_blob(31), _blob(32), _blob(33), _blob(34)]
 # (blob, column) of the cells under test: two blobs, columns 5 and 64 from both
 CELLS = [(0, 0), (0, 5), (1, 5), (0, 64), (0, 100), (0, 127), (1, 3), (1, 9), (1, 64), (1, 77), (1, 126), (0, 1)]
-FEW = [1, 2, 9]  # three cells: the proof and commitment MSMs take the ladder
+FEW = [1, 2, 9]  # three cells: proof and commitment MSMs of fewer than 8 points
+# one column of a block: up to 6 blobs (EIP-7691's target), and a seventh
+# blob whose proof at the column is foreign to each of them
+COLUMN, COLUMN_BLOBS = 77, BLOBS + [_blob(35), _blob(36), _blob(37)]
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +75,21 @@ def commitments(reference):
     return [je4.blob_to_kzg_commitment(b, reference) for b in BLOBS]
 
 
+def _blob_cells(oracle, blob):
+    """A blob's polynomial (monomial form) and its 128 cells, by the oracle."""
+    return od.poly_lagrange_to_monomial(od.bytes_to_blob(blob)), od.compute_cells_and_kzg_proofs(blob, oracle, False)[0]
+
+
+def _cell_proof(oracle, poly, col):
+    """The proof of the cell at `col`: the commitment to the quotient of the
+    polynomial by x^64 - h^64, by the native core's MSM."""
+    c = od._get_coset_shift_pow_for_cell(col, oracle)
+    q = [0] * (len(poly) - 64)
+    for k in range(len(q) - 1, -1, -1):  # p = q (x^64 - c) + rest
+        q[k] = (poly[k + 64] + (c * q[k + 64] if k + 64 < len(q) else 0)) % R
+    return jn.g1_compress_batch([jn.g1_msm(oracle.g1_monomial[: len(q)], q)])[0]
+
+
 @pytest.fixture(scope="module")
 def cells(oracle, commitments):
     """(commitments, cell indices, cells, proofs) of CELLS."""
@@ -79,16 +97,23 @@ def cells(oracle, commitments):
     by_blob = {}
     for b, col in CELLS:
         if b not in by_blob:
-            blob = od.bytes_to_blob(BLOBS[b])
-            by_blob[b] = (od.poly_lagrange_to_monomial(blob), od.compute_cells_and_kzg_proofs(BLOBS[b], oracle, False)[0])
+            by_blob[b] = _blob_cells(oracle, BLOBS[b])
         poly, blob_cells = by_blob[b]
-        c = od._get_coset_shift_pow_for_cell(col, oracle)
-        q = [0] * (len(poly) - 64)
-        for k in range(len(q) - 1, -1, -1):  # p = q (x^64 - c) + rest
-            q[k] = (poly[k + 64] + (c * q[k + 64] if k + 64 < len(q) else 0)) % R
         out_cells.append(blob_cells[col])
-        out_proofs.append(jn.g1_compress_batch([jn.g1_msm(oracle.g1_monomial[: len(q)], q)])[0])
+        out_proofs.append(_cell_proof(oracle, poly, col))
     return [commitments[b] for b, _ in CELLS], [col for _, col in CELLS], out_cells, out_proofs
+
+
+@pytest.fixture(scope="module")
+def column(oracle, reference):
+    """(commitments, cell indices, cells, proofs) of COLUMN in each blob of
+    COLUMN_BLOBS."""
+    out = [], [], [], []
+    for blob in COLUMN_BLOBS:
+        poly, blob_cells = _blob_cells(oracle, blob)
+        for v, x in zip(out, (je4.blob_to_kzg_commitment(blob, reference), COLUMN, blob_cells[COLUMN], _cell_proof(oracle, poly, COLUMN))):
+            v.append(x)
+    return out
 
 
 def _oracle_points(oracle, cb, idx, cl, pr):
@@ -133,6 +158,28 @@ def test_cell_verify_matches_oracle_and_jax(port, oracle, reference, cells, whic
     for args in ((cb, idx, tampered, pr), (cb, idx, cl, swapped)):
         assert api.verify_cell_kzg_proof_batch(*args, port) is False
         assert je7.verify_cell_kzg_proof_batch(*args, reference) is False
+
+
+@pytest.mark.parametrize("blobs", [1, 6])
+def test_one_column_verify_matches_oracle_and_jax(port, oracle, reference, column, blobs, monkeypatch):
+    """One column of a block of 1 and of 6 blobs: each of the three
+    variable-base MSM rows (the proof lincomb's two, the commitments')
+    has fewer than 8 points, and msm.small counts them. The four points
+    of the device side equal the oracle's, and the verdict equals the
+    JAX package's: True, then False with one proof replaced by another
+    blob's at the same column."""
+    cb, idx, cl, pr = (v[:blobs] for v in column)
+    _, want = _oracle_points(oracle, cb, idx, cl, pr)
+    body, seen = te7._verify_cell_body, []
+    monkeypatch.setattr(te7, "_verify_cell_body", lambda *a: seen.append(body(*a)) or seen[-1])
+    before = tracing.counters().get("msm.small", 0)
+    assert api.verify_cell_kzg_proof_batch(cb, idx, cl, pr, port) is True
+    assert tracing.counters()["msm.small"] - before == 3
+    assert tg.affine_to_ints(seen[0]) == want
+    assert je7.verify_cell_kzg_proof_batch(cb, idx, cl, pr, reference) is True
+    foreign = pr[:-1] + [column[3][-1]]
+    assert api.verify_cell_kzg_proof_batch(cb, idx, cl, foreign, port) is False
+    assert je7.verify_cell_kzg_proof_batch(cb, idx, cl, foreign, reference) is False
 
 
 def test_cell_challenge_matches_jax(cells):
